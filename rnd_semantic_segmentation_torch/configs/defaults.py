@@ -1,0 +1,166 @@
+"""Default config tree.
+
+The same keys and values as the JAX package's configs/defaults.py, so every
+``configs/*.yaml`` merges into equal trees in both packages.  One value
+differs: ``MODEL.DEVICE`` is ``"cuda"`` here, and the port uses the CPU only
+when a caller sets ``MODEL.DEVICE cpu``.
+
+This slice of the port reads MODEL.NAME, MODEL.NUM_CLASSES, MODEL.DEVICE,
+INPUT.INPUT_SIZE_TEST, AUG.NAME, TEST.QUANT, OUTPUT_DIR and resume.  The
+other keys belong to parts of the JAX package not yet ported (training,
+data, distribution, quantization) and are kept so that their configs load.
+The port computes in float32 whatever MODEL.DTYPE says, as the JAX eval path
+does.
+"""
+
+from .node import CfgNode
+
+_C = CfgNode()
+
+# ---------------------------------------------------------------------------
+# Model
+# ---------------------------------------------------------------------------
+_C.MODEL = CfgNode()
+_C.MODEL.NAME = "deeplab_resnet101"       # "<family>_<backbone>"
+_C.MODEL.NUM_CLASSES = 2
+_C.MODEL.DEVICE = "cuda"                  # "cuda" | "cpu"; "cuda" without a card raises
+_C.MODEL.WEIGHTS = ""
+_C.MODEL.FREEZE_BN = False
+_C.MODEL.DTYPE = "bfloat16"
+_C.MODEL.S2D_MAX_CHANNELS = 0
+_C.MODEL.SUBPIXEL_DECONV = False
+_C.MODEL.FUSED_MBCONV = False
+_C.MODEL.REMAT_BLOCKS = False
+
+# ---------------------------------------------------------------------------
+# Input / preprocessing
+# ---------------------------------------------------------------------------
+_C.INPUT = CfgNode()
+_C.INPUT.TRAINSIZE = 352
+_C.INPUT.SOURCE_INPUT_SIZE_TRAIN = (1280, 720)   # (W, H)
+_C.INPUT.TARGET_INPUT_SIZE_TRAIN = (1024, 512)
+_C.INPUT.INPUT_SIZE_TEST = (1024, 512)           # (W, H): the serving geometry
+_C.INPUT.INPUT_SCALES_TRAIN = (1.0, 1.0)
+_C.INPUT.IGNORE_LABEL = 255
+_C.INPUT.PIXEL_MEAN = [0.485, 0.456, 0.406]
+_C.INPUT.PIXEL_STD = [0.229, 0.224, 0.225]
+_C.INPUT.TO_BGR255 = False
+_C.INPUT.BRIGHTNESS = 0.0
+_C.INPUT.CONTRAST = 0.0
+_C.INPUT.SATURATION = 0.0
+_C.INPUT.HUE = 0.0
+_C.INPUT.HORIZONTAL_FLIP_PROB_TRAIN = 0.0
+
+# ---------------------------------------------------------------------------
+# Augmentation pipeline selector
+# ---------------------------------------------------------------------------
+_C.AUG = CfgNode()
+_C.AUG.NAME = "attn"                      # attn | pra | aspp | gald | none
+_C.AUG.BLUR_PROB = 0.7
+_C.AUG.ROTATE_PROB = 0.7
+_C.AUG.JITTER_PROB = 0.7
+_C.AUG.FLIP_PROB = 0.7
+_C.AUG.PROB = 0.7
+_C.AUG.COLLATE = "attn"
+
+# ---------------------------------------------------------------------------
+# Datasets
+# ---------------------------------------------------------------------------
+_C.DATASETS = CfgNode()
+_C.DATASETS.DATASET_DIR = ""
+_C.DATASETS.SOURCE_TRAIN = ""
+_C.DATASETS.TARGET_TRAIN = ""
+_C.DATASETS.VALIDATION = ""
+_C.DATASETS.TEST = ""
+_C.DATASETS.CROSS_VAL = 0
+_C.DATASETS.SYNTHETIC_LENGTH = 64
+
+# ---------------------------------------------------------------------------
+# Solver
+# ---------------------------------------------------------------------------
+_C.SOLVER = CfgNode()
+_C.SOLVER.EPOCHS = 5
+_C.SOLVER.MAX_ITER = 16000
+_C.SOLVER.STOP_ITER = 10000
+_C.SOLVER.LR_METHOD = "poly"
+_C.SOLVER.BASE_LR = 0.02
+_C.SOLVER.BASE_LR_D = 0.008
+_C.SOLVER.LR_POWER = 0.9
+_C.SOLVER.MOMENTUM = 0.9
+_C.SOLVER.WEIGHT_DECAY = 0.0005
+_C.SOLVER.WEIGHT_DECAY_BIAS = 0.0
+_C.SOLVER.DECAY_RATE = 0.1
+_C.SOLVER.DECAY_EPOCH = 50
+_C.SOLVER.GAMMA = 0.1
+_C.SOLVER.CHECKPOINT_PERIOD = 5
+_C.SOLVER.KEEP_CHECKPOINTS = 0
+_C.SOLVER.ASYNC_CHECKPOINT = False
+_C.SOLVER.BATCH_SIZE = 8                  # global batch size
+_C.SOLVER.BATCH_SIZE_VAL = 1
+_C.SOLVER.LR_BATCH_REF = 0
+_C.SOLVER.WARMUP_ITERS = 0
+_C.SOLVER.GRAD_CLIP = 0.0
+_C.SOLVER.ADV_WEIGHT = 0.001
+_C.SOLVER.ACCUM_STEPS = 1
+_C.SOLVER.REMAT = "none"
+_C.SOLVER.BN_RECAL_BATCHES = 0
+
+# ---------------------------------------------------------------------------
+# Test / serving
+# ---------------------------------------------------------------------------
+_C.TEST = CfgNode()
+_C.TEST.BATCH_SIZE = 1
+_C.TEST.FLIP_TTA = False
+_C.TEST.MULTI_SCALE = False
+_C.TEST.SCALES = (0.7, 1.0, 1.3)
+_C.TEST.QUANT = "none"                    # the port serves "none" only so far
+_C.TEST.QUANT_CALIB_BATCHES = 2
+_C.TEST.QUANT_MAX_AREA = 1048576
+_C.TEST.QUANT_AGREEMENT_FLOOR = 0.95
+_C.TEST.QUANT_MIN_CHANNELS = 64
+_C.TEST.QUANT_REPAIR_MAX = 6
+
+# ---------------------------------------------------------------------------
+# Distribution
+# ---------------------------------------------------------------------------
+_C.DIST = CfgNode()
+_C.DIST.DATA_AXIS = "data"
+_C.DIST.SPATIAL_AXIS = "spatial"
+_C.DIST.SPATIAL_PARALLEL = 1
+_C.DIST.NUM_DEVICES = 0
+_C.DIST.INITIALIZE = False
+
+# ---------------------------------------------------------------------------
+# Host data pipeline
+# ---------------------------------------------------------------------------
+_C.DATA_PIPE = CfgNode()
+_C.DATA_PIPE.NUM_WORKERS = 4
+_C.DATA_PIPE.WORKER_PROCESSES = 0
+_C.DATA_PIPE.PREFETCH = 2
+_C.DATA_PIPE.SEED = 0
+_C.DATA_PIPE.DEVICE_AUG = False
+_C.DATA_PIPE.NATIVE_DECODE = False
+
+# ---------------------------------------------------------------------------
+# Self-distillation
+# ---------------------------------------------------------------------------
+_C.DISTILL = CfgNode()
+_C.DISTILL.ONLINE = False
+_C.DISTILL.TEACHER = ""
+_C.DISTILL.CONFIDENCE_THRESHOLD = 0.0
+
+# ---------------------------------------------------------------------------
+# Debug
+# ---------------------------------------------------------------------------
+_C.DEBUG = CfgNode()
+_C.DEBUG.NANS = False                     # torch.autograd anomaly detection (later slice)
+_C.DEBUG.CHECKIFY = False
+
+_C.OUTPUT_DIR = "."
+_C.resume = ""
+_C.PSEUDO_DIR = ""
+_C.SEED = 0
+
+
+def get_default_cfg() -> CfgNode:
+    return _C.clone()

@@ -1,0 +1,27 @@
+"""Bilinear resize on NCHW tensors (counterpart of the JAX package's ops/resize.py).
+
+The JAX package spells ``F.interpolate(mode="bilinear")`` out as two
+interpolation-matrix products; here it is the PyTorch op itself, in both
+``align_corners`` flavours.  Resizing to the input size is the identity, as
+there.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["resize_bilinear"]
+
+
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Resizes ``x`` [N,C,H,W] to ``size`` = (H_out, W_out), computing in f32."""
+    size = (int(size[0]), int(size[1]))
+    if tuple(x.shape[-2:]) == size:
+        return x
+    out = F.interpolate(x.float(), size=size, mode="bilinear",
+                        align_corners=align_corners)
+    return out.to(x.dtype)
