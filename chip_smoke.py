@@ -9,13 +9,21 @@ no result line on any failure.  Phases, each of which raises:
   1. device   the card's name and power limit (nvidia-smi) and torch's view;
   2. build    every CUDA source of the port, one nvcc each, all started at once;
   3. kernels  each kernel against its plain PyTorch version on the card, in
-              float32 and bfloat16, at the serving shapes and more, and its
-              time beside its bound and the plain version's time;
-  4. serve    the main path: GALD (HarDNet68 + GCPA-CC, 19 classes, full
+              float32 and bfloat16, at the serving and training shapes and
+              more (the backward also against autograd of the plain forward),
+              and its time beside its bound and the plain version's time;
+  4. serve    the serving path: GALD (HarDNet68 + GCPA-CC, 19 classes, full
               width, seeded weights) behind the port's HTTP server at
               1024x512, 16 PNG requests from 8 threads; kernel launches are
               counted over exactly that traffic, and one batch of masks is
-              checked against the same forward with the plain attention core.
+              checked against the same forward with the plain attention core;
+  5. train    the training path: the same model through the source-training
+              CLI's parser and ``Trainer`` at 1280x720, batch 6, Adam, float32,
+              on the synthetic dataset, for 6 steps; forward and backward
+              kernel launches are counted over exactly those steps, the
+              attention's parameters must receive gradients and move, one
+              step's gradients are held against the same step with the plain
+              core, and the checkpoint it wrote loads back into ``Tester``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,8 +47,10 @@ import numpy as np
 import torch
 
 from rnd_semantic_segmentation_torch.ckpt.torch_import import save_reference_checkpoint
+from rnd_semantic_segmentation_torch.cli import train_src
 from rnd_semantic_segmentation_torch.cli.common import load_cfg
 from rnd_semantic_segmentation_torch.cli.serve import build_parser
+from rnd_semantic_segmentation_torch.eval.tester import Tester
 from rnd_semantic_segmentation_torch.models import gcpa
 from rnd_semantic_segmentation_torch.models.build import build_segmentor, randomize_weights_
 from rnd_semantic_segmentation_torch.ops import ccattn, native
@@ -56,13 +66,30 @@ PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 # serving geometry: (W, H) = (1024, 512); the /32 map is 16x32 with 256 channels
 SERVE_W, SERVE_H = 1024, 512
+# training geometry: (W, H) = (1280, 720), batch 6; the /32 map is 22x40
+TRAIN_W, TRAIN_H, TRAIN_BATCH, TRAIN_STEPS = 1280, 720, 6, 6
+TRAIN_CC_SHAPE = (TRAIN_BATCH, 22, 40, 32, 256)
 CC_SHAPES = [(1, 16, 32, 32, 256), (8, 16, 32, 32, 256),   # serving, B in {1, 8}
+             TRAIN_CC_SHAPE,
              (2, 7, 11, 32, 256),                          # rectangular, odd
+             (1, 1, 5, 32, 256),                           # column branch all masked
              (1, 64, 128, 32, 256)]                        # 2048x4096 input
 MAIN_CC_SHAPE = (8, 16, 32, 32, 256)
 # |kernel - plain| <= atol + rtol*|plain|: float32 sums in another order;
 # bfloat16 outputs round to 8 mantissa bits on both sides
 TOLERANCE = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+# the backward's outputs are sums of up to H+W+... products whose size grows
+# with the shape, so its tolerance is a share of the plain result's largest
+# magnitude: float32 sums in another order; bfloat16 outputs round to 8
+# mantissa bits (2^-8 of the value) on both sides
+BWD_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# one train step's gradients, kernels against plain core, as ||difference|| over
+# ||plain|| per leaf: the cores agree to 1e-5, and the backward of the bilinear
+# upsampling adds with atomics, in an order that differs from run to run (the
+# run prints that spread beside the comparison); both differences pass through
+# 68 layers of batch-statistics BatchNorm and ReLU, which amplify them (2e-5
+# for the atomics alone and 7e-4 for the cores on an NVIDIA H100)
+GRAD_TOLERANCE = 5e-3
 N_REQUESTS, N_THREADS, MAX_BATCH = 16, 8, 8
 MIN_MASK_AGREEMENT = 0.999
 
@@ -92,7 +119,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = native.build([ccattn.SOURCE])
+    built = native.build(ccattn.SOURCES)
     for name, (seconds, out) in built.items():
         log(f"[build] {name}: {seconds:.2f} s")
         for line in out.splitlines():
@@ -145,6 +172,56 @@ def cc_bound(shape, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def cc_bwd_bound(shape, dtype):
+    """Least time for the backward at ``shape``: q, k, v, g read once and dq,
+    dk, dv written once, against its five contractions (e, da, dq, dk, dv) and
+    the softmax at the input type's peak rate."""
+    b, h, w, cq, c = shape
+    item = torch.tensor([], dtype=dtype).element_size()
+    pixels = b * h * w
+    nbytes = item * pixels * (4 * cq + 3 * c)
+    flops = pixels * (h + w) * (6 * cq + 4 * c + 8)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_kernels_bwd() -> dict:
+    result = {}
+    for shape in CC_SHAPES[:-1]:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = cc_inputs(shape, dtype)
+            g = cc_inputs(shape, dtype, seed=1)[2]
+            got = ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
+            torch.cuda.synchronize()
+            plain = ccattn.cc_attention_core_bwd_plain(q, k, v, g)
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            auto = torch.autograd.grad(ccattn.cc_attention_core_plain(*leaves), leaves, g)
+            rel = BWD_TOLERANCE[dtype]
+            err, ok = 0.0, True
+            for name, o, p, a in zip(("dq", "dk", "dv"), got, plain, auto):
+                for ref in (p, a):
+                    scale = ref.float().abs().max().item()
+                    e = (o.float() - ref.float()).abs().max().item()
+                    err = max(err, e)
+                    ok = ok and o.dtype == dtype and o.shape == ref.shape \
+                        and bool(torch.isfinite(o).all()) and e <= rel * scale
+            log(f"[kernel] cc_attention_bwd {shape} {str(dtype)[6:]}: max abs err "
+                f"{err:.3e} against the plain backward and autograd of the plain "
+                f"forward (tolerance {rel:g} x max|plain|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"cc_attention_bwd disagrees with its plain version "
+                                     f"at {shape} {dtype}: {err}")
+            ms = graph_ms(lambda: ccattn.cc_attention_core_bwd_cuda(q, k, v, g))
+            plain_ms = graph_ms(lambda: ccattn.cc_attention_core_bwd_plain(q, k, v, g))
+            bound_ms, bound_by = cc_bwd_bound(shape, dtype)
+            log(f"[kernel]   {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+                f"({bound_by}), plain version {plain_ms * 1e3:.2f} us")
+            if shape == TRAIN_CC_SHAPE and dtype == torch.float32:
+                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
+
+
 def phase_kernels() -> dict:
     result = {}
     for shape in CC_SHAPES:
@@ -167,9 +244,9 @@ def phase_kernels() -> dict:
             bound_ms, bound_by = cc_bound(shape, dtype)
             log(f"[kernel]   {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
                 f"({bound_by}), plain version {plain_ms * 1e3:.2f} us")
-            if shape == MAIN_CC_SHAPE and dtype == torch.float32:
-                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by}
+            if shape in (MAIN_CC_SHAPE, TRAIN_CC_SHAPE) and dtype == torch.float32:
+                result[shape] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
     return result
 
 
@@ -330,20 +407,171 @@ def phase_serve(tmp: str, card: str) -> int:
     return launches
 
 
+ATTENTION_PARAMS = ("query_conv.weight", "key_conv.weight", "value_conv.weight", "gamma")
+
+
+def _one_step_grads(segmentor, loss_fn, x, label):
+    segmentor.zero_grad(set_to_none=True)
+    outputs, _ = segmentor(x, train=True)
+    loss = loss_fn(outputs, label)
+    loss.backward()
+    torch.cuda.synchronize()
+    return loss.item(), {n: p.grad.clone() for n, p in segmentor.named_parameters()}
+
+
+def _worst_leaf(grads, refs):
+    """The largest ||grad - ref|| / ||ref|| over the leaves, with its name.  A
+    leaf whose gradient is rounding noise (a conv bias under a batch-statistics
+    BN) is held to a floor: 1e-4 of the largest leaf's RMS value."""
+    rms = {n: r.float().square().mean().sqrt().item() for n, r in refs.items()}
+    floor = 1e-4 * max(rms.values())
+    worst, worst_name = 0.0, ""
+    for name, ref in refs.items():
+        err = (grads[name] - ref).float().square().mean().sqrt().item()
+        rel = err / max(rms[name], floor)
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def phase_train(tmp: str, card: str):
+    from rnd_semantic_segmentation_torch.train.steps import make_family_loss
+
+    out_dir = os.path.join(tmp, "train")
+    opts = ["-cfg", os.path.join(HERE, "configs", "gald_src.yaml"),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train",
+            "DATASETS.SYNTHETIC_LENGTH", str(TRAIN_BATCH * TRAIN_STEPS),
+            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1", "OUTPUT_DIR", out_dir]
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
+                tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN))
+    if geometry != ("gald_hardnet68", 19, TRAIN_BATCH, (TRAIN_W, TRAIN_H)):
+        raise AssertionError(f"configs/gald_src.yaml gives {geometry}")
+    logger = logging.getLogger("chip_smoke.train")
+    logger.addHandler(logging.StreamHandler(sys.stderr))
+    logger.setLevel(logging.INFO)
+
+    trainer = train_src.make_trainer("gald", cfg, logger=logger)
+    segmentor = trainer.segmentor
+    randomize_weights_(segmentor, seed=0)  # gamma 0.7: the attention carries signal
+    relation = segmentor.parts["decoder"].long_relation
+    attention = {n: p for n, p in relation.named_parameters() if n in ATTENTION_PARAMS}
+    if set(attention) != set(ATTENTION_PARAMS):
+        raise AssertionError(f"attention parameters {sorted(attention)}")
+    before = {n: p.detach().clone() for n, p in attention.items()}
+    seen = []
+    hook = relation.register_forward_hook(
+        lambda mod, inp, out: seen.append(tuple(inp[0].shape)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ccattn.KERNEL_LAUNCHES = ccattn.BWD_KERNEL_LAUNCHES = 0
+    trainer.train()
+    torch.cuda.synchronize()
+    fwd_launches, bwd_launches = ccattn.KERNEL_LAUNCHES, ccattn.BWD_KERNEL_LAUNCHES
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    hook.remove()
+
+    steps = trainer.state.step
+    if steps != TRAIN_STEPS or len(trainer.loss_data) != TRAIN_STEPS:
+        raise AssertionError(f"{steps} steps taken, want {TRAIN_STEPS}")
+    if not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"losses {trainer.loss_data}")
+    log(f"[train] {steps} steps of batch {TRAIN_BATCH} at {TRAIN_W}x{TRAIN_H}: losses "
+        f"{[round(v, 4) for v in trainer.loss_data]}, lr {trainer.lr_data[0]:.3g} -> "
+        f"{trainer.lr_data[-1]:.3g}")
+    b, c, h, w = seen[0]
+    if (b, h, w, max(c // 8, 1), c) != TRAIN_CC_SHAPE or len(seen) != 2 * steps:
+        raise AssertionError(f"criss-cross inputs {seen[:2]} x{len(seen)}, want "
+                             f"{TRAIN_CC_SHAPE} twice a step")
+    if fwd_launches != 2 * steps or bwd_launches != 2 * steps:
+        raise AssertionError(f"launches over {steps} steps: forward {fwd_launches}, "
+                             f"backward {bwd_launches}; want {2 * steps} each")
+    log(f"[train] launches over {steps} steps: cc_attention_fwd {fwd_launches}, "
+        f"cc_attention_bwd {bwd_launches} = 2 x steps each, at {TRAIN_CC_SHAPE}")
+    for name, p in attention.items():
+        grad = 0.0 if p.grad is None else p.grad.abs().max().item()
+        moved = (p.detach() - before[name]).abs().max().item()
+        log(f"[train]   long_relation.{name}: max |grad| {grad:.3e}, moved {moved:.3e}")
+        if not (grad > 0 and moved > 0 and np.isfinite(grad)):
+            raise AssertionError(f"long_relation.{name} got no gradient or did not move")
+
+    times = trainer.meters.meters["time"].series[1:]   # the first step warms cuDNN up
+    waits = trainer.meters.meters["data"].series[1:]
+    step_ms = float(np.median(times)) * 1e3
+    log(f"[train] on {card}: {step_ms:.1f} ms/step (median of steps 2..{steps}; first "
+        f"step {trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
+        f"{TRAIN_BATCH / step_ms * 1e3:.2f} images/s, data share of a step "
+        f"{sum(waits) / sum(times):.1%}, peak memory {peak_mib:.0f} MiB, float32, TF32 off")
+
+    # one step's gradients: the kernels against the same step with the plain core
+    loader = trainer.train_loader
+    loader.set_epoch(1)
+    sample = next(iter(loader))
+    x = torch.from_numpy(sample["image"]).to(trainer.device).permute(0, 3, 1, 2).contiguous()
+    label = torch.from_numpy(sample["label"]).to(trainer.device)
+    loss_fn = make_family_loss(trainer.spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    loss_k, grads_k = _one_step_grads(segmentor, loss_fn, x, label)
+    with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
+        before_plain = ccattn.KERNEL_LAUNCHES
+        loss_p, grads_p = _one_step_grads(segmentor, loss_fn, x, label)
+        if ccattn.KERNEL_LAUNCHES != before_plain:
+            raise AssertionError("the plain-core step launched the kernel")
+    _, grads_k2 = _one_step_grads(segmentor, loss_fn, x, label)
+    worst, worst_name = _worst_leaf(grads_k, grads_p)
+    noise, noise_name = _worst_leaf(grads_k2, grads_k)
+    log(f"[train] one step, kernels vs plain core: loss {loss_k:.6f} vs {loss_p:.6f}; "
+        f"worst gradient leaf {worst_name} off by {worst:.3e} of its norm (tolerance "
+        f"{GRAD_TOLERANCE:g}, {len(grads_p)} leaves); the same step twice with the "
+        f"kernels differs by {noise:.3e} at {noise_name}")
+    if worst > GRAD_TOLERANCE or abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        raise AssertionError(f"gradients disagree with the plain-core step: {worst_name} "
+                             f"{worst}")
+
+    # the checkpoint the trainer wrote loads back into Tester through `resume latest`
+    ckpt = os.path.join(out_dir, "Gald-1.pth")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"{ckpt} was not written")
+    test_cfg = load_cfg(train_src.build_parser().parse_args(opts + ["resume", "latest"]))
+    tester = Tester(test_cfg, logger)
+    tester._load_checkpoint()
+    trained = dict(segmentor.named_parameters())
+    for name, p in tester.segmentor.named_parameters():
+        if not torch.equal(p, trained[name]):
+            raise AssertionError(f"{name} differs between the trainer and {ckpt}")
+    probs = tester._probs_impl(x[:1, :, :SERVE_H, :SERVE_W].contiguous(), (SERVE_H, SERVE_W))
+    if probs.shape != (1, 19, SERVE_H, SERVE_W) or not torch.isfinite(probs).all():
+        raise AssertionError(f"Tester on {ckpt}: probabilities {tuple(probs.shape)}")
+    log(f"[train] {ckpt} ({os.path.getsize(ckpt) / 2 ** 20:.0f} MiB) loads into Tester; "
+        f"parameters equal the trainer's")
+    return fwd_launches, bwd_launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
-    timing = phase_kernels()
+    fwd = phase_kernels()
+    bwd = phase_kernels_bwd()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_serve(tmp, card)
+        serve_launches = phase_serve(tmp, card)
+        torch.cuda.empty_cache()
+        train_fwd_launches, train_bwd_launches = phase_train(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
-        "launches": launches, "max_abs_err": timing["max_abs_err"], "ms": timing["ms"],
-        "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
-        "bound_by": timing["bound_by"], "library_ms": None,
+        "launches": serve_launches + train_fwd_launches,
+        "launches_serve": serve_launches, "launches_train": train_fwd_launches,
+        **fwd[MAIN_CC_SHAPE], "library_ms": None,
+        "shape": list(MAIN_CC_SHAPE),
+        "at_train_shape": {**fwd[TRAIN_CC_SHAPE], "shape": list(TRAIN_CC_SHAPE)},
+    }, {
+        "name": "cc_attention_bwd", "route": "cuda",
+        "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_bwd.cu",
+        "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
+        "launches": train_bwd_launches, **bwd, "library_ms": None,
+        "shape": list(TRAIN_CC_SHAPE),
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")
     log(card)

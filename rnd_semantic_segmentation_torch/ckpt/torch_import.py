@@ -12,9 +12,15 @@ scope paths become the reference's torch keys, and by role
 It takes the variables as nested dicts of arrays (numpy, or anything
 ``np.asarray`` reads) and imports no JAX.
 
-``load_reference_checkpoint`` reads a reference-layout ``.pth``
-(``{"encoder": sd, "decoder": sd}``); ``save_reference_checkpoint`` writes
-one from the port's modules.
+``gald_flax_from_state_dicts`` goes the other way, for the training tests:
+the port's tensors by ``state_dict`` key (weights, or gradients by parameter
+name) are laid out as a flax tree, so that loss, gradients and updated
+parameters can be compared leaf by leaf.
+
+``load_reference_checkpoint`` reads the model parts of a reference-layout
+``.pth`` (``{"encoder": sd, "decoder": sd}``, with or without the optimizer
+states, epoch and step a training checkpoint adds);
+``save_reference_checkpoint`` writes one from the port's modules.
 """
 
 from __future__ import annotations
@@ -84,6 +90,49 @@ def gald_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
             "decoder": _state_dict_from_flax(variables["decoder"], _DECODER_RULES)}
 
 
+def _flax_from_state_dict(sd: Mapping, template: Mapping, rules) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for collection, leaves in (("params", _PARAM_LEAVES), ("batch_stats", _STAT_LEAVES)):
+        paths = [p for p, _ in _flatten(template.get(collection, {}))]
+        keys = {p: f"{_torch_prefix(p[:-1], rules)}.{leaves[p[-1]]}" for p in paths}
+        present = [p for p in paths if keys[p] in sd]
+        if not present:
+            continue
+        if len(present) != len(paths):
+            missing = [keys[p] for p in paths if keys[p] not in sd]
+            raise KeyError(f"{collection}: {len(missing)} keys missing, e.g. {missing[:5]}")
+        tree: Dict[str, Any] = {}
+        for path in paths:
+            value = sd[keys[path]]
+            if isinstance(value, torch.Tensor):
+                value = value.detach().cpu().numpy()
+            arr = np.asarray(value, dtype=np.float32)
+            if path[-1] == "kernel":
+                arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
+            node = tree
+            for name in path[:-1]:
+                node = node.setdefault(name, {})
+            node[path[-1]] = np.ascontiguousarray(arr)
+        out[collection] = tree
+    return out
+
+
+def gald_flax_from_state_dicts(tensors: Mapping[str, Mapping],
+                               template: Mapping[str, Any]) -> Dict[str, Dict]:
+    """The inverse of ``gald_state_dicts_from_flax``.
+
+    ``tensors`` is ``{"encoder": {torch key: array}, "decoder": {...}}``: whole
+    ``state_dict``s, or gradients by parameter name.  ``template`` is a JAX
+    GALD variables tree, read for its paths only.  Returns, per part, the
+    collections (``params``, ``batch_stats``) whose keys ``tensors`` holds, as
+    nested dicts of numpy arrays; a collection held in part raises.
+    """
+    return {"encoder": _flax_from_state_dict(tensors["encoder"], template["encoder"],
+                                             _ENCODER_RULES),
+            "decoder": _flax_from_state_dict(tensors["decoder"], template["decoder"],
+                                             _DECODER_RULES)}
+
+
 def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
     if sd and all(k.startswith(prefix) for k in sd):
         return {k[len(prefix):]: v for k, v in sd.items()}
@@ -91,7 +140,10 @@ def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
 
 
 def load_reference_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
-    """A reference-layout ``.pth`` -> ``{part: state_dict}`` on the CPU."""
+    """A reference-layout ``.pth`` -> ``{part: state_dict}`` on the CPU.
+
+    A part is an entry that maps names to tensors; a training checkpoint's
+    optimizer states, epoch and step are left out."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory (an Orbax checkpoint of the JAX package); "
@@ -100,7 +152,8 @@ def load_reference_checkpoint(path: str) -> Dict[str, Dict[str, torch.Tensor]]:
     if not isinstance(ckpt, dict):
         raise ValueError(f"{path}: expected a dict of per-part state dicts")
     return {part: _strip_prefix(dict(sd), "module.") for part, sd in ckpt.items()
-            if isinstance(sd, Mapping)}
+            if isinstance(sd, Mapping) and sd
+            and all(isinstance(v, torch.Tensor) for v in sd.values())}
 
 
 def save_reference_checkpoint(modules: Mapping[str, nn.Module], path: str) -> None:

@@ -2,7 +2,20 @@
 
 from __future__ import annotations
 
+import argparse
+
 from ..configs import get_default_cfg
+
+
+def base_parser(description: str) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("-cfg", "--config-file", default="", metavar="FILE",
+                        help="path to config file", type=str)
+    parser.add_argument("--local_rank", type=int, default=0,
+                        help="kept for reference CLI parity; unused on one device")
+    parser.add_argument("opts", help="Modify config options from the command line",
+                        default=None, nargs=argparse.REMAINDER)
+    return parser
 
 
 def load_cfg(args):

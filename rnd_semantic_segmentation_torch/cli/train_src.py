@@ -1,0 +1,48 @@
+"""Source-only supervised training CLI.
+
+    python -m rnd_semantic_segmentation_torch.cli.train_src \\
+        -cfg configs/gald_src.yaml DATASETS.SOURCE_TRAIN synthetic_train
+
+The model family comes from MODEL.NAME through the registry.  Runs on the
+CUDA card unless ``MODEL.DEVICE cpu`` is given.
+"""
+
+from __future__ import annotations
+
+from ..data import DataLoader, build_collate_fn, build_dataset
+from ..train.trainer import Trainer
+from .common import base_parser, load_cfg
+
+
+def build_parser():
+    return base_parser("GPU semantic segmentation source training")
+
+
+def make_trainer(name: str, cfg, local_rank: int = 0, logger=None) -> Trainer:
+    train_data = build_dataset(cfg, "train", is_source=True)
+    train_loader = DataLoader(
+        train_data,
+        batch_size=cfg.SOLVER.BATCH_SIZE,
+        shuffle=True,
+        drop_last=True,
+        num_workers=cfg.DATA_PIPE.NUM_WORKERS,
+        worker_processes=cfg.DATA_PIPE.WORKER_PROCESSES,
+        collate_fn=build_collate_fn(cfg),
+        seed=cfg.DATA_PIPE.SEED,
+    )
+    return Trainer(name, cfg, train_loader, local_rank, logger=logger)
+
+
+def main(name: str, cfg, local_rank: int = 0) -> None:
+    make_trainer(name, cfg, local_rank).train()
+
+
+def cli():
+    args = build_parser().parse_args()
+    cfg = load_cfg(args)
+    name = cfg.MODEL.NAME.split("_")[0]
+    main(name, cfg, args.local_rank)
+
+
+if __name__ == "__main__":
+    cli()

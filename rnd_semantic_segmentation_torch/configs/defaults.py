@@ -5,12 +5,21 @@ The same keys and values as the JAX package's configs/defaults.py, so every
 differs: ``MODEL.DEVICE`` is ``"cuda"`` here, and the port uses the CPU only
 when a caller sets ``MODEL.DEVICE cpu``.
 
-This slice of the port reads MODEL.NAME, MODEL.NUM_CLASSES, MODEL.DEVICE,
-INPUT.INPUT_SIZE_TEST, AUG.NAME, TEST.QUANT, OUTPUT_DIR and resume.  The
-other keys belong to parts of the JAX package not yet ported (training,
-data, distribution, quantization) and are kept so that their configs load.
-The port computes in float32 whatever MODEL.DTYPE says, as the JAX eval path
-does.
+The port reads, for serving: MODEL.NAME, MODEL.NUM_CLASSES, MODEL.DEVICE,
+INPUT.INPUT_SIZE_TEST, AUG.NAME, TEST.QUANT, OUTPUT_DIR and resume; and for
+source training also INPUT.SOURCE_INPUT_SIZE_TRAIN, INPUT.IGNORE_LABEL,
+DATASETS.SOURCE_TRAIN/TEST/SYNTHETIC_LENGTH, AUG.COLLATE, SEED, DEBUG.NANS,
+DATA_PIPE.NUM_WORKERS/PREFETCH/SEED and the SOLVER keys EPOCHS, LR_METHOD,
+BASE_LR, LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
+LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP, ACCUM_STEPS, CHECKPOINT_PERIOD and
+KEEP_CHECKPOINTS.  A training knob whose counterpart is not ported yet raises
+NotImplementedError when it is set (MODEL.WEIGHTS, SOLVER.REMAT,
+SOLVER.BN_RECAL_BATCHES, SOLVER.ASYNC_CHECKPOINT, DATA_PIPE.DEVICE_AUG,
+DATA_PIPE.WORKER_PROCESSES, DATA_PIPE.NATIVE_DECODE, DIST.*, DEBUG.CHECKIFY).
+The other keys belong to parts of the JAX package not yet ported and are kept
+so that their configs load.  The port computes in float32 whatever MODEL.DTYPE
+says, in training as in serving; MODEL.FREEZE_BN does not reach the gald
+family, here as in the JAX package.
 """
 
 from .node import CfgNode
@@ -153,7 +162,7 @@ _C.DISTILL.CONFIDENCE_THRESHOLD = 0.0
 # Debug
 # ---------------------------------------------------------------------------
 _C.DEBUG = CfgNode()
-_C.DEBUG.NANS = False                     # torch.autograd anomaly detection (later slice)
+_C.DEBUG.NANS = False                     # torch.autograd anomaly detection in the trainer
 _C.DEBUG.CHECKIFY = False
 
 _C.OUTPUT_DIR = "."

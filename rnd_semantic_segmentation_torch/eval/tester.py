@@ -1,7 +1,8 @@
 """Evaluation head (counterpart of the JAX package's eval/tester.py).
 
 This slice has what the serving daemon uses: the model on its device, the
-checkpoint loader for reference-layout ``.pth`` files, and the gald
+checkpoint loader for reference-layout ``.pth`` files and the trainer's
+checkpoints (``resume <file.pth>`` or ``resume latest``), and the gald
 probability head ``_probs_impl``: decoder ``out2`` -> bilinear
 (align_corners=False) to the label size -> softmax over classes.  The
 multi-device eval and the metric loop come with a later slice.
@@ -13,6 +14,7 @@ from typing import Tuple
 
 import torch
 
+from ..ckpt.checkpoint_io import latest_checkpoint
 from ..ckpt.torch_import import load_part, load_reference_checkpoint
 from ..models.build import build_segmentor
 from ..ops import resize_bilinear
@@ -34,10 +36,13 @@ class Tester:
     # -- checkpoint ----------------------------------------------------------
     def _load_checkpoint(self):
         path = self.cfg.resume
-        if not path or path == "latest":
+        if path == "latest":
+            path = latest_checkpoint(self.cfg.OUTPUT_DIR, self.spec.ckpt_prefix)
+        if not path:
             raise FileNotFoundError(
-                f"resume={path or '(empty)'}: the port needs `resume <file.pth>`; "
-                f"finding the newest checkpoint in OUTPUT_DIR comes with training")
+                f"resume={self.cfg.resume or '(empty)'}: the port needs `resume "
+                f"<file.pth>`, or `resume latest` with a {self.spec.ckpt_prefix}-N.pth "
+                f"in OUTPUT_DIR {self.cfg.OUTPUT_DIR!r}")
         if not path.endswith(".pth"):
             raise NotImplementedError(
                 f"resume={path}: the port reads reference-layout .pth files only "

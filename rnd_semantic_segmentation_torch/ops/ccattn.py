@@ -1,4 +1,4 @@
-"""Criss-cross (axial H+W) attention core: a CUDA kernel and its plain version.
+"""Criss-cross (axial H+W) attention core: two CUDA kernels and their plain versions.
 
 Counterpart of rnd_semantic_segmentation_tpu/ops/ccattn.py.  The function is
 the one its ``cc_attention_core_jnp`` computes: energies down the column (the
@@ -6,50 +6,104 @@ query's own row masked to -inf) and along the row, one softmax over the joint
 H+W axis, and the two aggregations summed.  Layout is the JAX package's NHWC:
 q, k ``[B,H,W,Cq]``, v ``[B,H,W,C]``.
 
-``cc_attention_core`` dispatches by the device the tensors lie on: CUDA
-tensors go to the kernel in ``csrc/ccattn_fwd.cu`` (or raise), CPU tensors to
-``cc_attention_core_plain``.  ``KERNEL_LAUNCHES`` counts the kernel launches.
+``cc_attention_core`` dispatches by the device the tensors lie on.  CUDA
+tensors go through ``CrissCrossFunction``, whose forward is the kernel in
+``csrc/ccattn_fwd.cu`` and whose backward is the kernel in
+``csrc/ccattn_bwd.cu`` (or they raise); the backward recomputes the attention
+from the saved q, k, v, as the JAX package's custom VJP does.  CPU tensors go
+to ``cc_attention_core_plain`` under ordinary autograd.  ``KERNEL_LAUNCHES``
+counts forward launches and ``BWD_KERNEL_LAUNCHES`` backward calls.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
 from . import native
 
 SOURCE = "ccattn_fwd"
+BWD_SOURCE = "ccattn_bwd"
+SOURCES = (SOURCE, BWD_SOURCE)
 KERNEL_LAUNCHES = 0
+BWD_KERNEL_LAUNCHES = 0
 
-# The kernel keeps H+W energies and the Cq query values in dynamic shared
+# The forward keeps H+W energies and the Cq query values in dynamic shared
 # memory, under the 48 KB a block gets without opting in to more.
 MAX_H_PLUS_W_PLUS_CQ = 12000
+# The backward keeps the H+W attention values, the H+W values <g, v_j>, the Cq
+# query values and the C gradient values of one query: 2(H+W)+Cq+C floats,
+# under the same 48 KB.
+MAX_BWD_SHARED_FLOATS = 12000
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _inner_dtype(t: torch.Tensor) -> torch.dtype:
+    """float32 inside, whatever the inputs' type; float64 stays float64."""
+    return torch.float64 if t.dtype == torch.float64 else torch.float32
+
+
+def _attention(qf: torch.Tensor, kf: torch.Tensor) -> torch.Tensor:
+    """The joint softmax [B,H,W,H+W]: column keys first, then row keys."""
+    h = qf.shape[1]
+    energy_h = torch.einsum("bhwc,bkwc->bhwk", qf, kf)
+    diag = torch.eye(h, dtype=torch.bool, device=qf.device)[None, :, None, :]
+    energy_h = energy_h.masked_fill(diag, float("-inf"))
+    energy_w = torch.einsum("bhwc,bhkc->bhwk", qf, kf)
+    return torch.softmax(torch.cat([energy_h, energy_w], dim=-1), dim=-1)
 
 
 def cc_attention_core_plain(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor) -> torch.Tensor:
     """[B,H,W,Cq] x2, [B,H,W,C] -> [B,H,W,C]; einsum form, f32 inside."""
     h = q.shape[1]
-    qf, kf, vf = (t.float() for t in (q, k, v))
-    energy_h = torch.einsum("bhwc,bkwc->bhwk", qf, kf)
-    diag = torch.eye(h, dtype=torch.bool, device=q.device)[None, :, None, :]
-    energy_h = energy_h.masked_fill(diag, float("-inf"))
-    energy_w = torch.einsum("bhwc,bhkc->bhwk", qf, kf)
-    att = torch.softmax(torch.cat([energy_h, energy_w], dim=-1), dim=-1)
+    inner = _inner_dtype(q)
+    qf, kf, vf = (t.to(inner) for t in (q, k, v))
+    att = _attention(qf, kf)
     att_h, att_w = att[..., :h], att[..., h:]
     out_h = torch.einsum("bhwk,bkwc->bhwc", att_h, vf)
     out_w = torch.einsum("bhwk,bhkc->bhwc", att_w, vf)
     return (out_h + out_w).to(v.dtype)
 
 
-def _library() -> ctypes.CDLL:
-    lib = native.load(SOURCE)
-    fn = lib.cc_attention_fwd
+def cc_attention_core_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """(dq, dk, dv) of ``cc_attention_core_plain`` for the output gradient g.
+
+    The explicit formula, f32 inside: a = softmax(e); da = <g, v_j>;
+    s = sum_j a*da over both branches; de = a*(da - s); dq = sum_j de*k_j;
+    dk_j += de*q; dv_j += a*g.
+    """
+    h = q.shape[1]
+    inner = _inner_dtype(q)
+    qf, kf, vf, gf = (t.to(inner) for t in (q, k, v, g))
+    att = _attention(qf, kf)
+    d_att = torch.cat([torch.einsum("bhwc,bkwc->bhwk", gf, vf),
+                       torch.einsum("bhwc,bhkc->bhwk", gf, vf)], dim=-1)
+    s = (att * d_att).sum(dim=-1, keepdim=True)
+    d_e = att * (d_att - s)
+    att_h, att_w = att[..., :h], att[..., h:]
+    de_h, de_w = d_e[..., :h], d_e[..., h:]
+    dq = (torch.einsum("bhwk,bkwc->bhwc", de_h, kf)
+          + torch.einsum("bhwk,bhkc->bhwc", de_w, kf))
+    dk = (torch.einsum("bhwk,bhwc->bkwc", de_h, qf)
+          + torch.einsum("bhwk,bhwc->bhkc", de_w, qf))
+    dv = (torch.einsum("bhwk,bhwc->bkwc", att_h, gf)
+          + torch.einsum("bhwk,bhwc->bhkc", att_w, gf))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _library(source: str) -> ctypes.CDLL:
+    lib = native.load(source)
+    if source == SOURCE:
+        fn, n_ptr = lib.cc_attention_fwd, 4
+    else:
+        fn, n_ptr = lib.cc_attention_bwd, 9
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -77,7 +131,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def cc_attention_core_cuda(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor) -> torch.Tensor:
-    """Launches the kernel on the current stream; raises on what it can't take."""
+    """Launches the forward kernel on the current stream; raises on what it
+    can't take.  The result carries no autograd history: gradients come from
+    ``CrissCrossFunction``, which calls this from its forward."""
     global KERNEL_LAUNCHES
     _check(q, k, v)
     if q.device.type != "cuda":
@@ -86,7 +142,7 @@ def cc_attention_core_cuda(q: torch.Tensor, k: torch.Tensor,
     if out.numel() == 0:
         return out
     b, h, w, cq = q.shape
-    lib = _library()
+    lib = _library(SOURCE)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.cc_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -98,8 +154,73 @@ def cc_attention_core_cuda(q: torch.Tensor, k: torch.Tensor,
     return out
 
 
+def cc_attention_core_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Launches the backward kernel (its two passes) on the current stream and
+    returns (dq, dk, dv) in the inputs' type; raises on what it can't take."""
+    global BWD_KERNEL_LAUNCHES
+    _check(q, k, v)
+    if g.device != q.device or g.dtype != q.dtype:
+        raise TypeError(f"cc_attention_core_bwd: g is {g.dtype} on {g.device}, "
+                        f"q is {q.dtype} on {q.device}")
+    if g.shape != v.shape or not g.is_contiguous():
+        raise ValueError(f"cc_attention_core_bwd: g must be contiguous with v's shape "
+                         f"{tuple(v.shape)}, got {tuple(g.shape)}")
+    b, h, w, cq = q.shape
+    c = v.shape[-1]
+    if 2 * (h + w) + cq + c > MAX_BWD_SHARED_FLOATS:
+        raise ValueError(f"cc_attention_core_bwd: 2(H+W)+Cq+C = {2 * (h + w) + cq + c} "
+                         f"exceeds the kernel's shared-memory limit "
+                         f"{MAX_BWD_SHARED_FLOATS}")
+    if q.device.type != "cuda":
+        raise ValueError(f"cc_attention_core_bwd_cuda: tensors on {q.device}, not CUDA")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dv.numel() == 0 or dq.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # float32 scratch: the attention and its energy gradient, per query
+    ws = torch.empty((2, b, h, w, h + w), dtype=torch.float32, device=q.device)
+    lib = _library(BWD_SOURCE)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.cc_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                                   dv.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+                                   b, h, w, cq, c, _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"cc_attention_bwd launch failed with CUDA error {err}")
+    BWD_KERNEL_LAUNCHES += 1
+    return dq, dk, dv
+
+
+class CrissCrossFunction(torch.autograd.Function):
+    """The core with its hand-written gradient.  Saves q, k, v and recomputes
+    the attention in the backward.  CUDA tensors take the two kernels; CPU
+    tensors take the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        if q.device.type == "cuda":
+            return cc_attention_core_cuda(q, k, v)
+        return cc_attention_core_plain(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad_out):
+        q, k, v = ctx.saved_tensors
+        if grad_out.dtype != q.dtype:
+            raise TypeError(f"CrissCrossFunction.backward: gradient is {grad_out.dtype}, "
+                            f"q is {q.dtype}")
+        # the caller permutes the output to NCHW, so the gradient arrives as a
+        # permuted view: the kernel needs it contiguous NHWC
+        g = grad_out.contiguous()
+        if q.device.type == "cuda":
+            return cc_attention_core_bwd_cuda(q, k, v, g)
+        return cc_attention_core_bwd_plain(q, k, v, g)
+
+
 def cc_attention_core(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return cc_attention_core_plain(q, k, v)
-    return cc_attention_core_cuda(q, k, v)
+    return CrissCrossFunction.apply(q, k, v)

@@ -1,9 +1,11 @@
 """Segmentor: one forward for every family (counterpart of the JAX package's
-train/segmentor.py).  This slice has the gald branch, in eval mode:
+train/segmentor.py).  This slice has the gald branch:
 ``decoder(x, encoder(x))``, whose discriminator tap is the last encoder tap.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,8 +20,17 @@ class Segmentor(nn.Module):
         self.num_classes = num_classes
         self.parts = nn.ModuleDict(spec.modules)
 
-    def forward(self, x: torch.Tensor):
-        """Returns (outputs tuple, disc_tap feature); x is NCHW float."""
+    def forward(self, x: torch.Tensor, label_size: Optional[Tuple[int, int]] = None,
+                train: bool = False):
+        """Returns (outputs tuple, disc_tap feature); x is NCHW float.
+
+        ``train=True`` puts every BatchNorm on batch statistics and updates
+        its running statistics; ``train=False`` applies the running ones.
+        ``label_size`` is for the families whose head resizes to the label;
+        gald's heads are at the input size already.
+        """
+        if self.training != train:
+            self.train(train)
         fam = self.spec.family
         if fam == "gald":
             taps = self.parts["encoder"](x)

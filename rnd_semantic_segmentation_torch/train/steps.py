@@ -1,0 +1,124 @@
+"""Source-supervised train step (counterpart of the JAX package's train/steps.py).
+
+One call does the forward in train mode, the family's loss, the backward and
+one optimizer step per part at this iteration's LR.
+
+Loss wiring per family:
+  * gald: deep supervision, CE(ignore=255) on the four heads weighted
+    1.0/0.8/0.6/0.4 on (out2, out3, out4, out5).
+  * deeplab, pranet, attn: with their slices of the port.
+
+LR schedules follow the reference trainers: poly per iteration for deeplab and
+gald, per-epoch warm-up and cosine for pranet and attn whatever
+SOLVER.LR_METHOD says.  Head parts get their 10x through ``spec.lr_mults``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from .. import losses
+from .schedules import (
+    gradual_warmup_cosine_lr,
+    poly_lr,
+    step_decay_lr,
+    warmup_cosine_lr,
+)
+from .segmentor import Segmentor
+from .state import TrainState, apply_updates
+
+
+def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callable:
+    fam = spec.family
+    if fam == "gald":
+        def loss_fn(outputs, label):
+            out5, out4, out3, out2 = outputs
+            return (losses.cross_entropy(out2, label, ignore_label) * 1.0
+                    + losses.cross_entropy(out3, label, ignore_label) * 0.8
+                    + losses.cross_entropy(out4, label, ignore_label) * 0.6
+                    + losses.cross_entropy(out5, label, ignore_label) * 0.4)
+        return loss_fn
+    if fam in ("deeplab", "pranet", "attn", "attnwrap"):
+        raise NotImplementedError(
+            f"the {fam} loss comes with the {fam} slice of the port")
+    raise NotImplementedError(fam)
+
+
+def make_lr_schedule(spec, cfg, steps_per_epoch: int) -> Callable:
+    """``lr(iteration, epoch0)`` with epoch0 the 0-based epoch.
+
+    The family comes first: pranet and attn have fixed schedules whatever
+    SOLVER.LR_METHOD says.  SOLVER.LR_BATCH_REF > 0 scales the base LR
+    linearly with the batch size, and SOLVER.WARMUP_ITERS > 0 puts a linear
+    ramp per iteration on top of whatever the family uses."""
+    fam = spec.family
+    base = cfg.SOLVER.BASE_LR
+    method = cfg.SOLVER.LR_METHOD
+    ref_batch = int(cfg.SOLVER.LR_BATCH_REF or 0)
+    if ref_batch > 0:
+        base = base * cfg.SOLVER.BATCH_SIZE / ref_batch
+    if fam == "pranet":
+        sched = lambda it, ep0: gradual_warmup_cosine_lr(base, ep0)
+    elif fam in ("attn", "attnwrap"):
+        sched = lambda it, ep0: warmup_cosine_lr(base, ep0)
+    elif method == "poly":
+        max_iter = cfg.SOLVER.EPOCHS * steps_per_epoch
+        sched = lambda it, ep0: poly_lr(base, it, max_iter, cfg.SOLVER.LR_POWER)
+    elif method == "step":
+        sched = lambda it, ep0: step_decay_lr(base, ep0, cfg.SOLVER.DECAY_RATE,
+                                              cfg.SOLVER.DECAY_EPOCH)
+    else:
+        raise NotImplementedError(method)
+    warmup_iters = int(cfg.SOLVER.WARMUP_ITERS or 0)
+    if warmup_iters <= 0:
+        return sched
+    return lambda it, ep0: sched(it, ep0) * min(1.0, (it + 1.0) / warmup_iters)
+
+
+def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
+                        state: TrainState) -> Callable:
+    """Returns ``step(batch, epoch0) -> {"loss", "lr"}``; it updates the
+    segmentor's parameters and BN statistics, ``state.optimizers`` and
+    ``state.step`` in place.
+
+    batch: ``{"image": [B,H,W,3] float, "label": [B,H,W] int}`` tensors on the
+    segmentor's device, in the loader's NHWC layout.  The compute type is
+    float32 whatever MODEL.DTYPE says.
+    """
+    if str(cfg.SOLVER.REMAT).lower() not in ("none", "", "0", "false"):
+        raise NotImplementedError(
+            f"SOLVER.REMAT {cfg.SOLVER.REMAT!r}: activation checkpointing is not "
+            f"ported yet; use 'none'")
+    if cfg.DEBUG.CHECKIFY:
+        raise NotImplementedError("DEBUG.CHECKIFY has no counterpart in the port yet; "
+                                  "DEBUG.NANS turns on autograd's anomaly detection")
+    spec = segmentor.spec
+    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    lr_sched = make_lr_schedule(spec, cfg, steps_per_epoch)
+    grad_clip = cfg.SOLVER.GRAD_CLIP or (0.5 if spec.family == "pranet" else 0.0)
+    accum = max(int(cfg.SOLVER.ACCUM_STEPS), 1)
+
+    def step_fn(batch: Dict[str, torch.Tensor], epoch0) -> Dict[str, float]:
+        x = batch["image"].float().permute(0, 3, 1, 2).contiguous()
+        label = batch["label"]
+        for opt in state.optimizers.values():
+            opt.zero_grad(set_to_none=True)
+        # micro-batches: gradients are averaged and BN statistics chain from
+        # one to the next (a bigger batch at 1/accum of the activation memory)
+        b = x.shape[0] // accum
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i in range(accum):
+            xs, ys = x[i * b:(i + 1) * b], label[i * b:(i + 1) * b]
+            outputs, _ = segmentor(xs, label_size=ys.shape[1:3], train=True)
+            loss = loss_fn(outputs, ys) / accum
+            loss.backward()
+            total += loss.detach()
+        lr = lr_sched(float(state.step), epoch0)
+        for name, opt in state.optimizers.items():
+            apply_updates(opt, lr * spec.lr_mults[name], grad_clip=grad_clip)
+        state.step += 1
+        return {"loss": float(total), "lr": lr}
+
+    return step_fn

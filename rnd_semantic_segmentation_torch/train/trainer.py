@@ -1,0 +1,149 @@
+"""Source-supervised trainer (counterpart of ``Trainer`` in the JAX package's
+train/trainer.py).
+
+Loop semantics kept from the reference trainers:
+  * the LR is rewritten every iteration (inside the step);
+  * a log line every 20 iterations with windowed meters; ``data`` is the time
+    a step waited for its batch and ``time`` the whole step;
+  * a checkpoint every SOLVER.CHECKPOINT_PERIOD epochs, ``{Prefix}-{epoch}.pth``,
+    pruned to SOLVER.KEEP_CHECKPOINTS;
+  * the loss and LR series dumped to ``<family>_chart_params.json``;
+  * resume from ``cfg.resume`` (a file, or ``latest`` in OUTPUT_DIR).
+
+One device, no mesh.  The adversarial trainer, PraNet's multi-scale steps and
+the knobs that raise below come with their slices.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import time
+
+import torch
+
+from ..ckpt.checkpoint_io import (
+    checkpoint_name,
+    latest_checkpoint,
+    load_checkpoint,
+    prune_checkpoints,
+    save_checkpoint,
+)
+from ..data.loader import DataLoader, device_prefetch
+from ..models.build import build_segmentor
+from ..utils import MetricLogger, dump_json, resolve_device, setup_logger
+from .segmentor import Segmentor
+from .state import TrainState, make_optimizers
+from .steps import make_src_train_step
+
+
+def _refuse_unported(cfg) -> None:
+    """Knobs of the JAX trainer whose counterparts are not ported yet raise;
+    none is silently ignored."""
+    waiting = {
+        "MODEL.WEIGHTS (pretrained backbone import)": bool(cfg.MODEL.WEIGHTS),
+        "SOLVER.BN_RECAL_BATCHES > 0": cfg.SOLVER.BN_RECAL_BATCHES > 0,
+        "SOLVER.ASYNC_CHECKPOINT": bool(cfg.SOLVER.ASYNC_CHECKPOINT),
+        "DATA_PIPE.DEVICE_AUG": bool(cfg.DATA_PIPE.DEVICE_AUG),
+        "DIST.NUM_DEVICES > 1": cfg.DIST.NUM_DEVICES > 1,
+        "DIST.SPATIAL_PARALLEL > 1": cfg.DIST.SPATIAL_PARALLEL > 1,
+        "DIST.INITIALIZE": bool(cfg.DIST.INITIALIZE),
+    }
+    asked = [name for name, on in waiting.items() if on]
+    if asked:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(asked)}; the port's trainer runs one "
+            f"device from seeded weights")
+
+
+class Trainer:
+    def __init__(self, name: str, cfg, train_loader: DataLoader,
+                 local_rank: int = 0, logger=None):
+        _refuse_unported(cfg)
+        self.cfg = cfg
+        self.name = name
+        self.train_loader = train_loader
+        self.logger = logger or setup_logger(name + "_train", cfg.OUTPUT_DIR, local_rank)
+        self.device = resolve_device(cfg.MODEL.DEVICE)
+        if cfg.DEBUG.NANS:
+            torch.autograd.set_detect_anomaly(True)
+        torch.manual_seed(cfg.SEED)
+        self.spec = build_segmentor(cfg)
+        self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES).to(self.device)
+        self.state = TrainState(optimizers=make_optimizers(self.spec, cfg))
+        self.start_epoch = 1
+        self.lr_data = []
+        self.loss_data = []
+
+        resume = cfg.resume
+        if resume == "latest":
+            resume = latest_checkpoint(cfg.OUTPUT_DIR, self.spec.ckpt_prefix) or ""
+        if resume:
+            self.logger.info(f"Loading checkpoint from {resume}")
+            self.start_epoch = load_checkpoint(resume, self.spec.modules, self.state)
+
+        self.steps_per_epoch = len(train_loader)
+        self.step_fn = make_src_train_step(self.segmentor, cfg, self.steps_per_epoch,
+                                           self.state)
+
+    def _peak_memory_mb(self) -> float:
+        if self.device.type != "cuda":
+            return 0.0
+        return torch.cuda.max_memory_allocated(self.device) / 1024.0 / 1024.0
+
+    def train(self) -> TrainState:
+        cfg = self.cfg
+        self.meters = meters = MetricLogger(delimiter="  ")
+        max_iter = cfg.SOLVER.EPOCHS * self.steps_per_epoch
+        self.logger.info("#" * 20 + f" Start {self.spec.ckpt_prefix} Training " + "#" * 20)
+        # reproducibility: snapshot the resolved config next to the run
+        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as fh:
+            fh.write(cfg.dump())
+        start = time.time()
+
+        iteration = self.state.step
+        for epoch in range(self.start_epoch, cfg.SOLVER.EPOCHS + 1):
+            epoch0 = float(epoch - 1)
+            self.train_loader.set_epoch(epoch)  # shuffle order is f(seed, epoch)
+            it = device_prefetch(iter(self.train_loader), cfg.DATA_PIPE.PREFETCH,
+                                 device=self.device)
+            while True:
+                tic = time.time()
+                try:
+                    # fetched explicitly, so that a stall of the host pipeline
+                    # shows: `data` is the time the device waited for input
+                    batch = next(it)
+                except StopIteration:
+                    break
+                data_time = time.time() - tic
+                metrics = self.step_fn(batch, epoch0)  # ends in a device sync
+                iteration += 1
+                loss, lr = metrics["loss"], metrics["lr"]
+                meters.update(loss_seg=loss, time=time.time() - tic, data=data_time)
+                self.lr_data.append(lr)
+                self.loss_data.append(loss)
+                if iteration % 20 == 0 or iteration == max_iter:
+                    eta = meters.meters["time"].global_avg * (max_iter - iteration)
+                    self.logger.info(
+                        f"Epoch: {epoch}  eta: {datetime.timedelta(seconds=int(eta))}  "
+                        f"iter: {iteration}  {meters}  lr: {lr:.6f}  "
+                        f"max mem: {self._peak_memory_mb():.0f}")
+            if epoch % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
+                # prune to keep-1 before the save, so that retention lands at
+                # SOLVER.KEEP_CHECKPOINTS (0 keeps all) after it, but never
+                # below one complete checkpoint while the new one is written
+                if cfg.SOLVER.KEEP_CHECKPOINTS > 0:
+                    prune_checkpoints(cfg.OUTPUT_DIR, self.spec.ckpt_prefix,
+                                      max(cfg.SOLVER.KEEP_CHECKPOINTS - 1, 1))
+                path = checkpoint_name(cfg.OUTPUT_DIR, self.spec.ckpt_prefix, epoch)
+                save_checkpoint(path, self.spec.modules, self.state, epoch)
+                self.logger.info(f"[Saving Snapshot:] {path}")
+
+        total = time.time() - start
+        self.logger.info(
+            f"Total training time: {datetime.timedelta(seconds=int(total))} "
+            f"({total / max(cfg.SOLVER.EPOCHS, 1):.4f} s / epoch)")
+        dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.spec.family}_chart_params.json"),
+                  {"learning rate": self.lr_data, "loss": self.loss_data})
+        return self.state

@@ -1,0 +1,194 @@
+"""The port's source-training entry point, end to end on the CPU at a tiny size:
+``cli/train_src.py`` -> ``Trainer`` -> checkpoints -> ``resume latest`` ->
+``Tester``.  GALD at 224x224, 3 classes, batch 2, 4 synthetic images, so an
+epoch is 2 steps.
+"""
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from rnd_semantic_segmentation_torch.ckpt.checkpoint_io import (
+    checkpoint_name,
+    latest_checkpoint,
+    prune_checkpoints,
+)
+from rnd_semantic_segmentation_torch.ckpt.torch_import import load_reference_checkpoint
+from rnd_semantic_segmentation_torch.cli import train_src
+from rnd_semantic_segmentation_torch.cli.common import load_cfg
+from rnd_semantic_segmentation_torch.eval.tester import Tester
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EPOCHS, STEPS_PER_EPOCH = 3, 2
+
+
+def _args(out_dir, *opts):
+    return ["-cfg", os.path.join(REPO, "configs", "gald_src.yaml"),
+            "MODEL.DEVICE", "cpu", "MODEL.NUM_CLASSES", "3",
+            "DATASETS.SOURCE_TRAIN", "synthetic_train", "DATASETS.SYNTHETIC_LENGTH", "4",
+            "INPUT.SOURCE_INPUT_SIZE_TRAIN", "(224, 224)", "SOLVER.BATCH_SIZE", "2",
+            "SOLVER.EPOCHS", str(EPOCHS), "SOLVER.CHECKPOINT_PERIOD", "1",
+            "SOLVER.KEEP_CHECKPOINTS", "2", "DATA_PIPE.NUM_WORKERS", "2",
+            "OUTPUT_DIR", str(out_dir), *opts]
+
+
+def _cfg(out_dir, *opts):
+    return load_cfg(train_src.build_parser().parse_args(_args(out_dir, *opts)))
+
+
+@pytest.fixture(scope="module")
+def full_run(tmp_path_factory):
+    """Three epochs through the CLI's own ``cli()``; yields its directory and
+    its loss and LR series, and removes the checkpoints afterwards."""
+    out_dir = tmp_path_factory.mktemp("train_full")
+    argv = sys.argv
+    sys.argv = ["train_src"] + _args(out_dir)
+    try:
+        train_src.cli()
+    finally:
+        sys.argv = argv
+    with open(out_dir / "gald_chart_params.json") as fh:
+        chart = json.load(fh)
+    yield out_dir, chart
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def test_cli_trains_and_writes_its_outputs(full_run):
+    out_dir, chart = full_run
+    losses, lrs = chart["loss"], chart["learning rate"]
+    assert len(losses) == len(lrs) == EPOCHS * STEPS_PER_EPOCH
+    assert all(l == l and abs(l) < 1e4 for l in losses)
+    assert lrs[0] == 1e-4 and all(a > b for a, b in zip(lrs, lrs[1:]))  # poly decay
+    assert "gald_hardnet68" in (out_dir / "config.yaml").read_text()
+    assert "iter: 6" in (out_dir / "gald_train.txt").read_text()  # the last-iteration line
+
+
+def test_checkpoints_are_pruned_to_keep_checkpoints(full_run):
+    out_dir, _ = full_run
+    found = sorted(p.name for p in out_dir.glob("Gald-*.pth"))
+    assert found == ["Gald-2.pth", "Gald-3.pth"]
+    assert latest_checkpoint(str(out_dir), "Gald") == str(out_dir / "Gald-3.pth")
+    assert checkpoint_name("x", "Gald", 12) == os.path.join("x", "Gald-12.pth")
+    assert not list(out_dir.glob("*.tmp"))
+
+
+def test_checkpoint_loads_with_weights_only_and_holds_the_reference_layout(full_run):
+    out_dir, _ = full_run
+    ckpt = torch.load(out_dir / "Gald-2.pth", map_location="cpu", weights_only=True)
+    assert set(ckpt) == {"encoder", "decoder", "optimizer_encoder", "optimizer_decoder",
+                         "epoch", "step"}
+    assert ckpt["epoch"] == 2 and ckpt["step"] == 2 * STEPS_PER_EPOCH
+    assert "long_relation.gamma" in ckpt["decoder"]
+    assert len(ckpt["optimizer_decoder"]["state"]) == len(
+        [k for k in ckpt["decoder"] if not ("running_" in k or "num_batches" in k)])
+    parts = load_reference_checkpoint(str(out_dir / "Gald-2.pth"))
+    assert set(parts) == {"encoder", "decoder"}  # exactly the model parts
+
+
+def test_resume_latest_continues_where_the_run_was(full_run, tmp_path):
+    """A directory that holds only the epoch-2 checkpoint, as after a run cut
+    during epoch 3: ``resume latest`` starts at epoch 3, step 4, and its two
+    steps repeat the uninterrupted run's losses and LRs."""
+    out_dir, chart = full_run
+    os.link(out_dir / "Gald-2.pth", tmp_path / "Gald-2.pth")
+    trainer = train_src.make_trainer("gald", _cfg(tmp_path, "resume", "latest"))
+    assert trainer.start_epoch == 3 and trainer.state.step == 2 * STEPS_PER_EPOCH
+    adam = trainer.state.optimizers["decoder"]
+    assert all(int(s["step"]) == 2 * STEPS_PER_EPOCH for s in adam.state.values())
+    trainer.train()
+    assert trainer.state.step == EPOCHS * STEPS_PER_EPOCH
+    assert trainer.lr_data == pytest.approx(chart["learning rate"][-STEPS_PER_EPOCH:], rel=1e-12)
+    # the same arithmetic on the same CPU: equal but for thread scheduling in reductions
+    assert trainer.loss_data == pytest.approx(chart["loss"][-STEPS_PER_EPOCH:], rel=1e-5)
+    assert sorted(p.name for p in tmp_path.glob("Gald-*.pth")) == ["Gald-2.pth", "Gald-3.pth"]
+    for p in tmp_path.glob("Gald-*.pth"):
+        p.unlink()
+
+
+def test_tester_resumes_latest(full_run):
+    import logging
+
+    out_dir, _ = full_run
+    tester = Tester(_cfg(out_dir, "resume", "latest"), logging.getLogger("torch_trainer"))
+    tester._load_checkpoint()
+    ckpt = torch.load(out_dir / "Gald-3.pth", map_location="cpu", weights_only=True)
+    for part, module in tester.spec.modules.items():
+        for key, value in module.state_dict().items():
+            assert torch.equal(value, ckpt[part][key]), (part, key)
+    x = torch.rand(1, 3, 224, 224, generator=torch.Generator().manual_seed(0))
+    probs = tester._probs_impl(x, (224, 224))
+    assert probs.shape == (1, 3, 224, 224) and torch.isfinite(probs).all()
+    assert not tester.segmentor.training
+    empty = Tester(_cfg(out_dir / "nothing_here", "resume", "latest"),
+                   logging.getLogger("torch_trainer"))
+    with pytest.raises(FileNotFoundError):
+        empty._load_checkpoint()
+
+
+def test_prune_checkpoints(tmp_path):
+    for epoch in (1, 2, 10):
+        (tmp_path / f"Gald-{epoch}.pth").write_bytes(b"x")
+    (tmp_path / "GaldFada-3.pth").write_bytes(b"x")
+    prune_checkpoints(str(tmp_path), "Gald", -1)
+    assert len(list(tmp_path.iterdir())) == 4
+    prune_checkpoints(str(tmp_path), "Gald", 2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["Gald-10.pth", "Gald-2.pth",
+                                                         "GaldFada-3.pth"]
+    assert latest_checkpoint(str(tmp_path), "Gald") == str(tmp_path / "Gald-10.pth")
+    prune_checkpoints(str(tmp_path), "Gald", 0)
+    assert [p.name for p in tmp_path.iterdir()] == ["GaldFada-3.pth"]
+    assert latest_checkpoint(str(tmp_path), "Gald") is None
+    assert latest_checkpoint(str(tmp_path / "missing"), "Gald") is None
+
+
+@pytest.mark.parametrize("opts", [
+    ("SOLVER.BN_RECAL_BATCHES", "2"),
+    ("DATA_PIPE.DEVICE_AUG", "True"),
+    ("MODEL.WEIGHTS", "hardnet68.pth"),
+    ("SOLVER.ASYNC_CHECKPOINT", "True"),
+    ("DIST.NUM_DEVICES", "4"),
+    ("DIST.SPATIAL_PARALLEL", "2"),
+    ("DIST.INITIALIZE", "True"),
+    ("DATA_PIPE.WORKER_PROCESSES", "2"),
+    ("DATA_PIPE.NATIVE_DECODE", "True"),
+    ("SOLVER.REMAT", "full"),
+    ("DEBUG.CHECKIFY", "True"),
+    ("DATASETS.SOURCE_TRAIN", "gta5_train"),
+    ("MODEL.NAME", "deeplab_resnet101"),
+    ("AUG.NAME", "aspp"),
+], ids=lambda o: o[0])
+def test_every_knob_that_waits_raises(tmp_path, opts):
+    with pytest.raises(NotImplementedError):
+        train_src.make_trainer("gald", _cfg(tmp_path, *opts))
+    assert not list(tmp_path.glob("*.pth"))
+
+
+def test_cuda_is_the_default_device_and_raises_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device resolves")
+    args = [a for a in _args(tmp_path) if a not in ("MODEL.DEVICE", "cpu")]
+    cfg = load_cfg(train_src.build_parser().parse_args(args))
+    assert cfg.MODEL.DEVICE == "cuda"
+    with pytest.raises(RuntimeError, match="MODEL.DEVICE"):
+        train_src.make_trainer("gald", cfg)
+
+
+def test_training_entry_point_imports_without_jax():
+    code = (
+        "import sys\n"
+        "import rnd_semantic_segmentation_torch.cli.train_src\n"
+        "import rnd_semantic_segmentation_torch.train.trainer\n"
+        "import rnd_semantic_segmentation_torch.ckpt.checkpoint_io\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'optax', 'orbax',\n"
+        "              'rnd_semantic_segmentation_tpu'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
