@@ -9,28 +9,43 @@ no result line on any failure.  Phases, each of which raises:
   1. device   the card's name and power limit (nvidia-smi) and torch's view;
   2. build    every CUDA source of the port, one nvcc each, all started at once;
   3. kernels  each kernel against its plain PyTorch version on the card, in
-              float32 and bfloat16, at the serving and training shapes and
-              more (the backward also against autograd of the plain forward),
-              and its time beside its bound and the plain version's time;
-  4. serve    the serving path: GALD (HarDNet68 + GCPA-CC, 19 classes, full
+              float32 and bfloat16, at the shapes the main paths give it and
+              more (the criss-cross backward also against autograd of the
+              plain forward; the fused MBConv also against the unfused module
+              path), and its time beside its bound and the plain version's;
+  4. serve    the GALD serving path: GALD (HarDNet68 + GCPA-CC, 19 classes, full
               width, seeded weights) behind the port's HTTP server at
               1024x512, 16 PNG requests from 8 threads; kernel launches are
               counted over exactly that traffic, and one batch of masks is
               checked against the same forward with the plain attention core;
-  5. train    the training path: the same model through the source-training
+  5. train    the GALD training path: the same model through the source-training
               CLI's parser and ``Trainer`` at 1280x720, batch 6, Adam, float32,
               on the synthetic dataset, for 6 steps; forward and backward
               kernel launches are counted over exactly those steps, the
               attention's parameters must receive gradients and move, one
               step's gradients are held against the same step with the plain
-              core, and the checkpoint it wrote loads back into ``Tester``.
+              core, and the checkpoint it wrote loads back into ``Tester``;
+  6. eval_attn   the attn eval path: Attention-EfficientNet-B2-UNet (2 classes,
+              full width and depth, seeded weights) through the test CLI's
+              parser and ``Tester.test()`` at 512x512, batch 8, on the
+              synthetic dataset, with MODEL.FUSED_MBCONV on: 17 fused-MBConv
+              launches per forward, a finite summary, and the confusion matrix
+              of the same run with the switch off;
+  7. serve_attn  the attn serving path: the same model behind the HTTP server
+              with the switch on, 16 PNG requests from 8 threads, launches
+              counted over exactly that traffic, one batch of masks checked
+              against the unfused forward.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
+phases (kernels, kernels_bwd, kernels_mbconv, serve, train, eval_attn,
+serve_attn; device and build always run) and prints no result lines: an aid
+while working on one path.
 """
 
 from __future__ import annotations
 
+import argparse
 import http.client
 import io
 import json
@@ -47,13 +62,15 @@ import numpy as np
 import torch
 
 from rnd_semantic_segmentation_torch.ckpt.torch_import import save_reference_checkpoint
+from rnd_semantic_segmentation_torch.cli import test as test_cli
 from rnd_semantic_segmentation_torch.cli import train_src
 from rnd_semantic_segmentation_torch.cli.common import load_cfg
 from rnd_semantic_segmentation_torch.cli.serve import build_parser
 from rnd_semantic_segmentation_torch.eval.tester import Tester
 from rnd_semantic_segmentation_torch.models import gcpa
 from rnd_semantic_segmentation_torch.models.build import build_segmentor, randomize_weights_
-from rnd_semantic_segmentation_torch.ops import ccattn, native
+from rnd_semantic_segmentation_torch.models.efficientnet import MBConvBlock, block_list
+from rnd_semantic_segmentation_torch.ops import ccattn, mbconv, native
 from rnd_semantic_segmentation_torch.serve.server import make_server
 from rnd_semantic_segmentation_torch.utils import load_json, resolve_device
 
@@ -92,6 +109,16 @@ BWD_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 GRAD_TOLERANCE = 5e-3
 N_REQUESTS, N_THREADS, MAX_BATCH = 16, 8, 8
 MIN_MASK_AGREEMENT = 0.999
+# the attn paths: Attention-EfficientNet-B2-UNet, 2 classes, 512x512, batch 8
+ATTN_MODEL, ATTN_SIZE, ATTN_BATCH, ATTN_EVAL_IMAGES = "attn_efficientnet-b2", 512, 8, 32
+MBCONV_LAUNCHES_PER_FORWARD = 17
+# fused-MBConv shapes beyond the model's, as (B, C, H, W, k) with F = 3C: odd
+# and rectangular; smaller than the 5x5 stencil; no multiple of the 16x16 tile
+MBCONV_ODD_SHAPES = [(2, 8, 7, 11, 3), (1, 16, 3, 5, 5), (2, 24, 37, 21, 5)]
+MAIN_MBCONV_SHAPE = (ATTN_BATCH, 24, 128, 128, 3)   # blocks 3 and 4: most bytes
+# fused and unfused eval of the same weights: the share of pixels whose argmax
+# may differ (ties at float32 precision between two sigmoid outputs)
+MAX_TIE_SHARE = 1e-3
 
 
 def log(msg: str) -> None:
@@ -119,7 +146,7 @@ def phase_device() -> str:
 
 def phase_build() -> None:
     t0 = time.perf_counter()
-    built = native.build(ccattn.SOURCES)
+    built = native.build(ccattn.SOURCES + mbconv.SOURCES)
     for name, (seconds, out) in built.items():
         log(f"[build] {name}: {seconds:.2f} s")
         for line in out.splitlines():
@@ -250,6 +277,135 @@ def phase_kernels() -> dict:
     return result
 
 
+def attn_mbconv_shapes(size: int = ATTN_SIZE) -> dict:
+    """{(C, H, W, k): number of blocks} of the MBConv blocks of one forward that
+    take the fused path (expansion, stride 1), from the model's block list."""
+    shapes, hw = {}, -(-size // 2)  # the stem halves the input
+    for k, stride, expand, c_in, _, _ in block_list(ATTN_MODEL.split("_")[1]):
+        hw = -(-hw // stride)
+        if expand != 1 and stride == 1:
+            shapes[(c_in, hw, hw, k)] = shapes.get((c_in, hw, hw, k), 0) + 1
+    return shapes
+
+
+def mbconv_inputs(shape, f, dtype, seed=0):
+    """x, w_exp, s0, b0, w_dw, s1, b1 with activations and affines of order 1."""
+    b, c, h, w, k = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    randn = lambda *size: torch.randn(size, device="cuda", generator=gen)
+    rand = lambda lo, hi: torch.rand(f, device="cuda", generator=gen) * (hi - lo) + lo
+    x = randn(b, c, h, w).to(dtype)
+    w_exp = (randn(f, c) * (1.7 / c) ** 0.5).to(dtype)
+    w_dw = randn(f, k, k) * (1.7 / (k * k)) ** 0.5
+    return x, w_exp, rand(0.5, 1.5), rand(-0.2, 0.2), w_dw, rand(0.5, 1.5), rand(-0.2, 0.2)
+
+
+def mbconv_bound(shape, f, dtype):
+    """Least time for the function at ``shape``: x and the weights read once
+    and y written once, against the product (2C per output), the stencil
+    (2k^2) and the two affines and swishes (12) at the input type's peak."""
+    b, c, h, w, k = shape
+    item = torch.tensor([], dtype=dtype).element_size()
+    nbytes = item * b * h * w * (c + f) + item * f * c + 4 * f * (k * k + 4)
+    flops = b * h * w * f * (2 * c + 2 * k * k + 12)
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _mbconv_compare(shape, f, dtype):
+    """The kernel against its plain version, borders and interior apart."""
+    b, c, h, w, k = shape
+    args = mbconv_inputs(shape, f, dtype)
+    out = mbconv.fused_mbconv_core(*args)
+    torch.cuda.synchronize()
+    ref = mbconv.fused_mbconv_core_plain(*args)
+    atol, rtol = TOLERANCE[dtype]
+    diff = (out.float() - ref.float()).abs()
+    bad = diff > atol + rtol * ref.float().abs()
+    p = (k - 1) // 2
+    border = torch.ones((h, w), dtype=torch.bool, device="cuda")
+    border[p:h - p, p:w - p] = False
+    err_border = diff[..., border].max().item() if border.any() else 0.0
+    err_inner = diff[..., ~border].max().item() if (~border).any() else 0.0
+    ok = (out.dtype == dtype and out.shape == (b, f, h, w) and not bool(bad.any())
+          and bool(torch.isfinite(out).all()))
+    log(f"[kernel] fused_mbconv_fwd B={b} C={c}->F={f} {h}x{w} k={k} {str(dtype)[6:]}: "
+        f"max abs err {max(err_border, err_inner):.3e} (border ring {err_border:.3e}, "
+        f"interior {err_inner:.3e}; tolerance {atol:g} + {rtol:g}*|plain|) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"fused_mbconv_fwd disagrees with its plain version at "
+                             f"{shape} F={f} {dtype}")
+    return args, max(err_border, err_inner)
+
+
+def phase_kernels_mbconv() -> dict:
+    """Kernel #3 against its plain version at every shape of the B2 forward
+    (B in {1, 8}) and at odd shapes; its time beside its bound, the plain
+    version's time and the unfused module path's (several library calls)."""
+    shapes = attn_mbconv_shapes()
+    if sum(shapes.values()) != MBCONV_LAUNCHES_PER_FORWARD or len(shapes) != 8:
+        raise AssertionError(f"{ATTN_MODEL} at {ATTN_SIZE}: fused blocks {shapes}")
+    before = mbconv.KERNEL_LAUNCHES
+    for shape in MBCONV_ODD_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            _mbconv_compare(shape, 3 * shape[1], dtype)
+    per_shape, main = [], {}
+    for (c, h, w, k), count in shapes.items():
+        f = 6 * c
+        for dtype in (torch.float32, torch.bfloat16):
+            _mbconv_compare((1, c, h, w, k), f, dtype)
+            shape = (ATTN_BATCH, c, h, w, k)
+            args, err = _mbconv_compare(shape, f, dtype)
+            with torch.inference_mode():
+                ms = graph_ms(lambda: mbconv.fused_mbconv_core(*args))
+                plain_ms = graph_ms(lambda: mbconv.fused_mbconv_core_plain(*args))
+            bound_ms, bound_by = mbconv_bound(shape, f, dtype)
+            entry = {"shape": list(shape), "f": f, "blocks": count, "max_abs_err": err,
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by}
+            if dtype == torch.float32:
+                # the module's own two routes through the segment, from one set of
+                # weights: the fused one folds both BatchNorms and launches the
+                # kernel, the unfused one is conv, BN, swish, conv, BN, swish
+                block = MBConvBlock(c, c, k, 1, 6, 0.25, fused_mbconv=True)
+                randomize_weights_(block, seed=c + k).cuda().eval()
+                with torch.inference_mode():
+                    fused, unfused = block.segment_fused(args[0]), block.segment_unfused(args[0])
+                    seg_err = (fused - unfused).abs().max().item()
+                    atol, rtol = TOLERANCE[dtype]
+                    if bool(((fused - unfused).abs() > atol + rtol * unfused.abs()).any()):
+                        raise AssertionError(f"MBConvBlock fused and unfused segments differ "
+                                             f"at {shape}: {seg_err}")
+                    entry["segment_ms"] = graph_ms(lambda: block.segment_fused(args[0]))
+                    entry["unfused_ms"] = graph_ms(lambda: block.segment_unfused(args[0]))
+                entry["segment_max_abs_err"] = seg_err
+                per_shape.append(entry)
+                log(f"[kernel]   x{count} blocks: kernel {ms * 1e3:.2f} us, bound "
+                    f"{bound_ms * 1e3:.2f} us ({bound_by}), plain version "
+                    f"{plain_ms * 1e3:.2f} us; module segment fused (BN folds + kernel) "
+                    f"{entry['segment_ms'] * 1e3:.2f} us vs unfused (conv, BN, swish, conv, "
+                    f"BN, swish: library calls) {entry['unfused_ms'] * 1e3:.2f} us, "
+                    f"fused vs unfused max abs err {seg_err:.3e}")
+                if shape == MAIN_MBCONV_SHAPE:
+                    main = {k2: entry[k2] for k2 in ("max_abs_err", "ms", "plain_ms",
+                                                     "bound_ms", "bound_by", "unfused_ms")}
+            else:
+                log(f"[kernel]   bfloat16: kernel {ms * 1e3:.2f} us, bound "
+                    f"{bound_ms * 1e3:.2f} us ({bound_by}), plain version "
+                    f"{plain_ms * 1e3:.2f} us")
+    totals = {key: sum(e[key] * e["blocks"] for e in per_shape)
+              for key in ("ms", "bound_ms", "plain_ms", "segment_ms", "unfused_ms")}
+    log(f"[kernel] fused_mbconv_fwd over the {MBCONV_LAUNCHES_PER_FORWARD} blocks of one "
+        f"B={ATTN_BATCH} forward, float32: kernel {totals['ms']:.3f} ms, bound "
+        f"{totals['bound_ms']:.3f} ms, plain version {totals['plain_ms']:.3f} ms, module "
+        f"segment fused {totals['segment_ms']:.3f} ms vs unfused {totals['unfused_ms']:.3f} ms")
+    if not main or mbconv.KERNEL_LAUNCHES == before:
+        raise AssertionError("the main fused-MBConv shape was not measured")
+    return {**main, "shape": list(MAIN_MBCONV_SHAPE), "per_shape": per_shape,
+            "per_forward_ms": totals}
+
+
 def host_ms(fn, reps: int = 3) -> float:
     """Host-clock time per call after one warm call; ``fn`` ends in a sync."""
     fn()
@@ -289,28 +445,33 @@ def _get(port: int, path: str):
         conn.close()
 
 
-def phase_serve(tmp: str, card: str) -> int:
-    from PIL import Image
+def _stderr_logger(name: str, level=logging.WARNING):
+    logger = logging.getLogger(name)
+    logger.addHandler(logging.StreamHandler(sys.stderr))
+    logger.setLevel(level)
+    return logger
 
-    pth = os.path.join(tmp, "Gald-seeded.pth")
-    args = build_parser().parse_args([
-        "--max-batch", str(MAX_BATCH), "MODEL.NAME", "gald_hardnet68",
-        "MODEL.NUM_CLASSES", "19", "INPUT.INPUT_SIZE_TEST", f"({SERVE_W}, {SERVE_H})",
-        "AUG.NAME", "gald", "OUTPUT_DIR", tmp, "resume", pth])
-    cfg = load_cfg(args)
+
+def _seeded_checkpoint(tag: str, cfg, pth: str) -> None:
     spec = build_segmentor(cfg)
     randomize_weights_(torch.nn.ModuleDict(spec.modules), seed=0)
     save_reference_checkpoint(spec.modules, pth)
-    log(f"[serve] seeded full-width weights: "
+    log(f"[{tag}] seeded full-width weights: "
         f"{sum(p.numel() for m in spec.modules.values() for p in m.parameters())} "
         f"parameters -> {pth}")
 
-    logger = logging.getLogger("chip_smoke.serve")
-    logger.addHandler(logging.StreamHandler(sys.stderr))
-    logger.setLevel(logging.WARNING)
-    render = load_json(os.path.join(HERE, "renders", "cityscapes.json"))
+
+def serve_traffic(tag: str, cfg, args, render, w: int, h: int, card: str, counter):
+    """Starts the daemon, sends N_REQUESTS PNGs of w x h from N_THREADS threads
+    and stops it.  ``counter`` is (module, attribute) of the kernel's launch
+    count: set to 0 just before the traffic and read just after.  Returns the
+    stopped server, the request bodies, the masks, the number of batches, the
+    launches and the wall time of the traffic."""
+    from PIL import Image
+
     t0 = time.perf_counter()
-    inf, httpd = make_server(cfg, render, logger, port=0, max_batch=args.max_batch,
+    inf, httpd = make_server(cfg, render, _stderr_logger(f"chip_smoke.{tag}"), port=0,
+                             max_batch=args.max_batch,
                              batch_timeout_ms=args.batch_timeout_ms)
     port = httpd.server_address[1]
     http_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -320,12 +481,11 @@ def phase_serve(tmp: str, card: str) -> int:
             if time.perf_counter() - t0 > 600 or not inf._thread.is_alive():
                 raise RuntimeError("server did not become ready")
             time.sleep(0.2)
-        log(f"[serve] ready on port {port} after {time.perf_counter() - t0:.1f} s "
-            f"(model load + warm-up of buckets 1..{MAX_BATCH} at {SERVE_W}x{SERVE_H})")
+        log(f"[{tag}] ready on port {port} after {time.perf_counter() - t0:.1f} s "
+            f"(model load + warm-up of buckets 1..{MAX_BATCH} at {w}x{h})")
 
         rng = np.random.RandomState(0)
-        images = [(rng.rand(SERVE_H, SERVE_W, 3) * 255).astype(np.uint8)
-                  for _ in range(N_REQUESTS)]
+        images = [(rng.rand(h, w, 3) * 255).astype(np.uint8) for _ in range(N_REQUESTS)]
         bodies = [_png(a) for a in images]
         results = [None] * N_REQUESTS
 
@@ -334,7 +494,7 @@ def phase_serve(tmp: str, card: str) -> int:
                 results[i] = _post(port, bodies[i])
 
         before = inf.snapshot_stats()
-        ccattn.KERNEL_LAUNCHES = 0
+        setattr(*counter, 0)
         t_start = time.perf_counter()
         threads = [threading.Thread(target=client, args=(i,)) for i in range(N_THREADS)]
         for t in threads:
@@ -342,7 +502,7 @@ def phase_serve(tmp: str, card: str) -> int:
         for t in threads:
             t.join(600)
         wall = time.perf_counter() - t_start
-        launches = ccattn.KERNEL_LAUNCHES
+        launches = getattr(*counter)
         after = inf.snapshot_stats()
         if any(t.is_alive() for t in threads):
             raise RuntimeError("requests did not finish")
@@ -352,25 +512,21 @@ def phase_serve(tmp: str, card: str) -> int:
             if status != 200:
                 raise AssertionError(f"request {i}: HTTP {status} {data[:200]!r}")
             mask = np.asarray(Image.open(io.BytesIO(data)))
-            if mask.shape != (SERVE_H, SERVE_W) or mask.max() >= cfg.MODEL.NUM_CLASSES:
+            if mask.shape != (h, w) or mask.max() >= cfg.MODEL.NUM_CLASSES:
                 raise AssertionError(f"request {i}: mask {mask.shape}, max {mask.max()}")
             masks.append(mask)
         batches = after["batches"] - before["batches"]
         served = after["batched_images"] - before["batched_images"]
         status, body = _get(port, "/stats")
         stats = json.loads(body)
-        log(f"[serve] {N_REQUESTS} requests from {N_THREADS} threads: {batches} batches, "
+        log(f"[{tag}] {N_REQUESTS} requests from {N_THREADS} threads: {batches} batches, "
             f"{served} images, /stats {stats}")
         if (status != 200 or served != N_REQUESTS or after["errors"] != before["errors"]
                 or after["requests"] - before["requests"] != N_REQUESTS):
             raise AssertionError(f"stats disagree with the traffic: {before} -> {after}")
-        if launches != 2 * batches or launches == 0:
-            raise AssertionError(f"cc_attention_fwd launched {launches} times for "
-                                 f"{batches} batches; want 2 per batch")
-        log(f"[serve] cc_attention_fwd launches: {launches} = 2 x {batches} batches")
 
         lat = np.array([r[2] for r in results]) * 1e3
-        log(f"[serve] on {card}: request latency p50 {np.percentile(lat, 50):.1f} ms, "
+        log(f"[{tag}] on {card}: request latency p50 {np.percentile(lat, 50):.1f} ms, "
             f"p99 {np.percentile(lat, 99):.1f} ms, {N_REQUESTS / wall:.2f} images/s "
             f"(PNG decode to mask PNG, {N_THREADS} clients, max batch {MAX_BATCH})")
     finally:
@@ -378,32 +534,180 @@ def phase_serve(tmp: str, card: str) -> int:
         httpd.server_close()
         inf.shutdown()
         http_thread.join(60)
+    return inf, bodies, masks, batches, launches, wall
 
-    # where a request's time goes: host decode, one full-batch dispatch (copy
-    # in, forward, argmax, copy out), the forward alone, and the mask encode
+
+def serve_breakdown(tag: str, inf, bodies, masks, w: int, h: int, batches: int,
+                    wall: float, card: str) -> torch.Tensor:
+    """Where a request's time goes: host decode, one full-batch dispatch (copy
+    in, forward, argmax, copy out), the forward alone, and the mask encode.
+    Returns the device batch it used."""
     tester = inf.tester
     batch = np.stack([inf.preprocess(b) for b in bodies[:MAX_BATCH]])
     x = torch.from_numpy(batch).to(tester.device).permute(0, 3, 1, 2).contiguous()
     decode_ms = host_ms(lambda: inf.preprocess(bodies[0]))
     run_ms = host_ms(lambda: inf._run(batch))
-    forward_ms = host_ms(lambda: tester._probs_impl(x, (SERVE_H, SERVE_W)).sum().item())
+    forward_ms = host_ms(lambda: tester._probs_impl(x, (h, w)).sum().item())
     encode_ms = host_ms(lambda: inf.encode_png(masks[0]))
-    log(f"[serve] breakdown on {card}: decode+preprocess {decode_ms:.1f} ms/image, "
+    log(f"[{tag}] breakdown on {card}: decode+preprocess {decode_ms:.1f} ms/image, "
         f"dispatch of {MAX_BATCH} {run_ms:.1f} ms (forward alone {forward_ms:.1f} ms), "
         f"palette PNG encode {encode_ms:.1f} ms/mask; {batches} batches x forward "
         f"<= {batches * forward_ms / (wall * 1e3):.0%} of the {wall * 1e3:.0f} ms window")
+    return x
 
-    # one batch against the same forward with the plain attention core
-    with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
-        probs = tester._probs_impl(x, (SERVE_H, SERVE_W))
-    if not torch.isfinite(probs).all() or (probs.sum(1) - 1).abs().max() > 1e-4:
-        raise AssertionError("plain-core probabilities are not a distribution")
-    plain = probs.argmax(1).to(torch.uint8).cpu().numpy()
-    agreement = float((plain == np.stack(masks[:MAX_BATCH])).mean())
-    log(f"[serve] served masks vs plain-core forward: argmax agreement {agreement:.6f} "
+
+def _check_agreement(tag: str, what: str, probs: torch.Tensor, masks) -> None:
+    if not torch.isfinite(probs).all():
+        raise AssertionError(f"{what}: probabilities are not finite")
+    other = probs.argmax(1).to(torch.uint8).cpu().numpy()
+    agreement = float((other == np.stack(masks[:MAX_BATCH])).mean())
+    log(f"[{tag}] served masks vs {what}: argmax agreement {agreement:.6f} "
         f"(minimum {MIN_MASK_AGREEMENT})")
     if agreement < MIN_MASK_AGREEMENT:
         raise AssertionError(f"argmax agreement {agreement} < {MIN_MASK_AGREEMENT}")
+
+
+def phase_serve(tmp: str, card: str) -> int:
+    pth = os.path.join(tmp, "Gald-seeded.pth")
+    args = build_parser().parse_args([
+        "--max-batch", str(MAX_BATCH), "MODEL.NAME", "gald_hardnet68",
+        "MODEL.NUM_CLASSES", "19", "INPUT.INPUT_SIZE_TEST", f"({SERVE_W}, {SERVE_H})",
+        "AUG.NAME", "gald", "OUTPUT_DIR", tmp, "resume", pth])
+    cfg = load_cfg(args)
+    _seeded_checkpoint("serve", cfg, pth)
+    render = load_json(os.path.join(HERE, "renders", "cityscapes.json"))
+    inf, bodies, masks, batches, launches, wall = serve_traffic(
+        "serve", cfg, args, render, SERVE_W, SERVE_H, card, (ccattn, "KERNEL_LAUNCHES"))
+    if launches != 2 * batches or launches == 0:
+        raise AssertionError(f"cc_attention_fwd launched {launches} times for "
+                             f"{batches} batches; want 2 per batch")
+    log(f"[serve] cc_attention_fwd launches: {launches} = 2 x {batches} batches")
+    x = serve_breakdown("serve", inf, bodies, masks, SERVE_W, SERVE_H, batches, wall, card)
+
+    # one batch against the same forward with the plain attention core
+    with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
+        probs = inf.tester._probs_impl(x, (SERVE_H, SERVE_W))
+    if (probs.sum(1) - 1).abs().max() > 1e-4:
+        raise AssertionError("plain-core probabilities are not a distribution")
+    _check_agreement("serve", "plain-core forward", probs, masks)
+    return launches
+
+
+def _set_fused(tester, enabled: bool) -> None:
+    for block in tester.spec.modules["encoder"].blocks:
+        block.fused_mbconv = enabled
+
+
+def _attn_opts(tmp: str, pth: str, *more):
+    return ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+            "-c", os.path.join(HERE, "renders", "kvasir.json"),
+            "OUTPUT_DIR", tmp, "resume", pth, *more]
+
+
+def _check_attn_geometry(cfg) -> None:
+    geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, tuple(cfg.INPUT.INPUT_SIZE_TEST))
+    if geometry != (ATTN_MODEL, 2, (ATTN_SIZE, ATTN_SIZE)):
+        raise AssertionError(f"configs/attn_src_kvasir.yaml gives {geometry}")
+
+
+def phase_eval_attn(tmp: str, card: str) -> int:
+    """``cli.test``'s own function on the attn family with the fused kernel
+    on, then the same run with it off."""
+    pth = os.path.join(tmp, "Attn-seeded.pth")
+    logger = _stderr_logger("chip_smoke.eval_attn", logging.INFO)
+    runs = {}
+    for fused in (True, False):
+        out_dir = os.path.join(tmp, f"eval_attn_{'fused' if fused else 'unfused'}")
+        args = test_cli.build_parser().parse_args(_attn_opts(
+            out_dir, pth, "DATASETS.TEST", "synthetic_val",
+            "DATASETS.SYNTHETIC_LENGTH", str(ATTN_EVAL_IMAGES),
+            "TEST.BATCH_SIZE", str(ATTN_BATCH), "MODEL.FUSED_MBCONV", str(fused)))
+        cfg = load_cfg(args)
+        _check_attn_geometry(cfg)
+        if fused:
+            _seeded_checkpoint("eval_attn", cfg, pth)
+        tester = test_cli.make_tester(cfg, load_json(args.config_path), logger=logger)
+        forwards = []
+        hook = tester.segmentor.register_forward_hook(
+            lambda mod, inp, out: forwards.append(tuple(inp[0].shape)))
+        torch.cuda.synchronize()
+        mbconv.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        summary = tester.test()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = mbconv.KERNEL_LAUNCHES
+        hook.remove()
+        want = [(ATTN_BATCH, 3, ATTN_SIZE, ATTN_SIZE)] * (ATTN_EVAL_IMAGES // ATTN_BATCH)
+        if forwards != want:
+            raise AssertionError(f"eval forwards {forwards}, want {want}")
+        expected = MBCONV_LAUNCHES_PER_FORWARD * len(forwards) if fused else 0
+        if launches != expected:
+            raise AssertionError(f"fused_mbconv_fwd launched {launches} times over "
+                                 f"{len(forwards)} forwards with FUSED_MBCONV {fused}; "
+                                 f"want {expected}")
+        scalars = [v for v in summary.values() if isinstance(v, float)]
+        if not scalars or not all(np.isfinite(scalars)) or not 0 < summary["micro_miou"] <= 1:
+            raise AssertionError(f"summary {summary}")
+        cmt = tester.confusion
+        written = load_json(os.path.join(out_dir, "attn_confusion_matrix.json"))
+        if cmt.sum() != ATTN_EVAL_IMAGES * ATTN_SIZE ** 2 or written["cmt"] != cmt.tolist():
+            raise AssertionError(f"confusion matrix {cmt.tolist()} / file {written}")
+        x = torch.rand(ATTN_BATCH, 3, ATTN_SIZE, ATTN_SIZE, device="cuda",
+                       generator=torch.Generator(device="cuda").manual_seed(0))
+        forward_ms = host_ms(
+            lambda: tester._probs_impl(x, (ATTN_SIZE, ATTN_SIZE)).sum().item())
+        # the same forward replayed from a CUDA graph: device time with no host in the way
+        device_ms = graph_ms(lambda: tester._probs_impl(x, (ATTN_SIZE, ATTN_SIZE)),
+                             reps=2, replays=5)
+        log(f"[eval_attn] FUSED_MBCONV {fused} on {card}: {ATTN_EVAL_IMAGES} images in "
+            f"{len(forwards)} batches of {ATTN_BATCH} at {ATTN_SIZE}x{ATTN_SIZE}, "
+            f"{launches} fused_mbconv_fwd launches"
+            f"{f' = {MBCONV_LAUNCHES_PER_FORWARD} x {len(forwards)} forwards' if fused else ''}"
+            f"; first pass {wall * 1e3:.0f} ms ({ATTN_EVAL_IMAGES / wall:.1f} images/s, "
+            f"loader and warm-up included); forward of {ATTN_BATCH} alone "
+            f"{forward_ms:.1f} ms on the host's clock, {device_ms:.2f} ms of device time "
+            f"(CUDA graph replay); micro mIoU {summary['micro_miou']:.4f}, macro mIoU "
+            f"{summary['macro_miou']:.4f}, confusion matrix {cmt.tolist()}")
+        runs[fused] = (cmt, summary, launches)
+    moved = int(np.abs(runs[True][0] - runs[False][0]).sum()) // 2
+    limit = int(MAX_TIE_SHARE * ATTN_EVAL_IMAGES * ATTN_SIZE ** 2)
+    log(f"[eval_attn] fused vs unfused confusion matrices: {moved} pixels moved "
+        f"(at most {limit}: ties at float32 precision)")
+    if moved > limit:
+        raise AssertionError(f"fused and unfused eval disagree on {moved} pixels")
+    return runs[True][2]
+
+
+def phase_serve_attn(tmp: str, card: str) -> int:
+    pth = os.path.join(tmp, "Attn-seeded-serve.pth")
+    args = build_parser().parse_args(
+        ["--max-batch", str(MAX_BATCH)]
+        + _attn_opts(tmp, pth, "MODEL.FUSED_MBCONV", "True"))
+    cfg = load_cfg(args)
+    _check_attn_geometry(cfg)
+    _seeded_checkpoint("serve_attn", cfg, pth)
+    inf, bodies, masks, batches, launches, wall = serve_traffic(
+        "serve_attn", cfg, args, load_json(args.config_path), ATTN_SIZE, ATTN_SIZE, card,
+        (mbconv, "KERNEL_LAUNCHES"))
+    if launches != MBCONV_LAUNCHES_PER_FORWARD * batches or launches == 0:
+        raise AssertionError(f"fused_mbconv_fwd launched {launches} times for {batches} "
+                             f"batches; want {MBCONV_LAUNCHES_PER_FORWARD} per batch")
+    log(f"[serve_attn] fused_mbconv_fwd launches: {launches} = "
+        f"{MBCONV_LAUNCHES_PER_FORWARD} x {batches} batches")
+    x = serve_breakdown("serve_attn", inf, bodies, masks, ATTN_SIZE, ATTN_SIZE, batches,
+                        wall, card)
+
+    # one batch against the same forward through the unfused blocks
+    _set_fused(inf.tester, False)
+    before = mbconv.KERNEL_LAUNCHES
+    probs = inf.tester._probs_impl(x, (ATTN_SIZE, ATTN_SIZE))
+    unfused_ms = host_ms(
+        lambda: inf.tester._probs_impl(x, (ATTN_SIZE, ATTN_SIZE)).sum().item())
+    if mbconv.KERNEL_LAUNCHES != before:
+        raise AssertionError("the unfused forward launched the kernel")
+    log(f"[serve_attn] unfused forward of {MAX_BATCH} alone {unfused_ms:.1f} ms on {card}")
+    _check_agreement("serve_attn", "unfused forward", probs, masks)
     return launches
 
 
@@ -447,9 +751,7 @@ def phase_train(tmp: str, card: str):
                 tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN))
     if geometry != ("gald_hardnet68", 19, TRAIN_BATCH, (TRAIN_W, TRAIN_H)):
         raise AssertionError(f"configs/gald_src.yaml gives {geometry}")
-    logger = logging.getLogger("chip_smoke.train")
-    logger.addHandler(logging.StreamHandler(sys.stderr))
-    logger.setLevel(logging.INFO)
+    logger = _stderr_logger("chip_smoke.train", logging.INFO)
 
     trainer = train_src.make_trainer("gald", cfg, logger=logger)
     segmentor = trainer.segmentor
@@ -547,16 +849,33 @@ def phase_train(tmp: str, card: str):
     return fwd_launches, bwd_launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--phases", default="", help="comma-separated phases to run "
+                        "(development aid: prints no result lines)")
+    only = [p for p in parser.parse_args(argv).phases.split(",") if p]
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
+    if only:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            for name in only:
+                fn = globals()[f"phase_{name}"]
+                fn(tmp, card) if fn.__code__.co_argcount else fn()
+                torch.cuda.empty_cache()
+        log(f"[done] phases {only} in {time.perf_counter() - t0:.1f} s; no result lines")
+        return 0
     fwd = phase_kernels()
     bwd = phase_kernels_bwd()
+    mb = phase_kernels_mbconv()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         serve_launches = phase_serve(tmp, card)
         torch.cuda.empty_cache()
         train_fwd_launches, train_bwd_launches = phase_train(tmp, card)
+        torch.cuda.empty_cache()
+        eval_attn_launches = phase_eval_attn(tmp, card)
+        torch.cuda.empty_cache()
+        serve_attn_launches = phase_serve_attn(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
@@ -572,6 +891,14 @@ def main() -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
         "launches": train_bwd_launches, **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
+    }, {
+        "name": "fused_mbconv_fwd", "route": "cuda",
+        "source": "rnd_semantic_segmentation_torch/ops/csrc/mbconv_fwd.cu",
+        "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
+        "launches": eval_attn_launches + serve_attn_launches,
+        "launches_eval_attn": eval_attn_launches,
+        "launches_serve_attn": serve_attn_launches,
+        **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")
     log(card)

@@ -1,16 +1,20 @@
-"""GALD weights between the JAX package's variables and reference ``state_dict``s.
+"""Weights between the JAX package's variables and reference ``state_dict``s.
 
-``gald_state_dicts_from_flax`` is the inverse of the JAX package's
-``convert_state_dict`` with its GCPA encoder and decoder rule tables: flax
-scope paths become the reference's torch keys, and by role
+``gald_state_dicts_from_flax`` and ``attn_state_dicts_from_flax`` are the
+inverses of the JAX package's ``convert_state_dict`` with its GCPA and attn
+encoder and decoder rule tables: flax scope paths become the reference's torch
+keys, and by role
 
   * conv kernels go from HWIO to OIHW (depthwise ones too);
+  * transposed-conv kernels, which the JAX package stores flipped in
+    correlation orientation (kh, kw, I, O), are transposed to (I, O, kh, kw)
+    and flipped back along both spatial axes;
   * BN ``scale``/``bias`` become ``weight``/``bias``, and ``batch_stats``
     ``mean``/``var`` become ``running_mean``/``running_var``;
   * the criss-cross ``gamma`` keeps its shape (1,).
 
-It takes the variables as nested dicts of arrays (numpy, or anything
-``np.asarray`` reads) and imports no JAX.
+They take the variables as nested dicts of arrays (numpy, or anything
+``np.asarray`` reads) and import no JAX.
 
 ``gald_flax_from_state_dicts`` goes the other way, for the training tests:
 the port's tensors by ``state_dict`` key (weights, or gradients by parameter
@@ -48,6 +52,23 @@ _DECODER_RULES = [
     (r"^fam(\d+)/b(\d)/bn$", r"fam\1.bn\2"),
     (r"/", "."),
 ]
+# the attn family: efficientnet-pytorch's underscored attributes under the
+# reference's ``encoder`` wrapper; the decoder's Sequential decode blocks
+# (conv, BN, LeakyReLU twice: indices 0, 1, 3, 4) and one-conv heads
+_ATTN_ENCODER_RULES = [
+    (r"^blocks_(\d+)/", r"_blocks.\1._"),
+    (r"^(?!_blocks)", "_"),
+    (r"^", "encoder."),
+]
+_ATTN_DECODER_RULES = [
+    (r"^decode_(\d)/conv0$", r"decode_\1.0"),
+    (r"^decode_(\d)/bn0$", r"decode_\1.1"),
+    (r"^decode_(\d)/conv1$", r"decode_\1.3"),
+    (r"^decode_(\d)/bn1$", r"decode_\1.4"),
+    (r"^out_(\d)$", r"out_\1.0"),
+    (r"/", "."),
+]
+_ATTN_DECODER_TRANSPOSED = (r"^mid_upsampler$", r"^ups_\d$")
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "gamma": "gamma"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -68,13 +89,20 @@ def _torch_prefix(scope: Tuple[str, ...], rules) -> str:
     return out
 
 
-def _state_dict_from_flax(variables: Mapping, rules) -> Dict[str, torch.Tensor]:
+def _state_dict_from_flax(variables: Mapping, rules,
+                          transposed_conv_paths: Tuple[str, ...] = ()
+                          ) -> Dict[str, torch.Tensor]:
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables["params"]):
         arr = np.asarray(value, dtype=np.float32)
+        prefix = _torch_prefix(path[:-1], rules)
         if path[-1] == "kernel":
-            arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-        key = f"{_torch_prefix(path[:-1], rules)}.{_PARAM_LEAVES[path[-1]]}"
+            if any(re.search(p, prefix) for p in transposed_conv_paths):
+                # flipped (kh, kw, I, O) -> (I, O, kh, kw), flipped back
+                arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
+            else:
+                arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+        key = f"{prefix}.{_PARAM_LEAVES[path[-1]]}"
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
     for path, value in _flatten(variables.get("batch_stats", {})):
         prefix = _torch_prefix(path[:-1], rules)
@@ -88,6 +116,13 @@ def gald_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
     """JAX GALD variables ``{"encoder": ..., "decoder": ...}`` -> torch state dicts."""
     return {"encoder": _state_dict_from_flax(variables["encoder"], _ENCODER_RULES),
             "decoder": _state_dict_from_flax(variables["decoder"], _DECODER_RULES)}
+
+
+def attn_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
+    """JAX attn variables ``{"encoder": ..., "decoder": ...}`` -> torch state dicts."""
+    return {"encoder": _state_dict_from_flax(variables["encoder"], _ATTN_ENCODER_RULES),
+            "decoder": _state_dict_from_flax(variables["decoder"], _ATTN_DECODER_RULES,
+                                             _ATTN_DECODER_TRANSPOSED)}
 
 
 def _flax_from_state_dict(sd: Mapping, template: Mapping, rules) -> Dict[str, Any]:

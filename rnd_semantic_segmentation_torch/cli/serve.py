@@ -2,8 +2,13 @@
 
     python -m rnd_semantic_segmentation_torch.cli.serve \\
         -cfg configs/gald_src.yaml --port 8500 resume <weights.pth>
+    python -m rnd_semantic_segmentation_torch.cli.serve \\
+        -cfg configs/attn_src_kvasir.yaml -c renders/kvasir.json \\
+        MODEL.FUSED_MBCONV True resume <weights.pth>
 
-Runs on the CUDA card unless ``MODEL.DEVICE cpu`` is given.
+Serves every family the port builds (gald, attn); ``-c`` names the render
+config whose palette colours the masks.  Runs on the CUDA card unless
+``MODEL.DEVICE cpu`` is given.
 """
 
 from __future__ import annotations

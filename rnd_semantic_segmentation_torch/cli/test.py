@@ -1,0 +1,62 @@
+"""Evaluation CLI: mIoU/F1 and the confusion matrix on DATASETS.TEST.
+
+    python -m rnd_semantic_segmentation_torch.cli.test \\
+        -cfg configs/attn_src_kvasir.yaml -c renders/kvasir.json \\
+        DATASETS.TEST synthetic_val resume <weights.pth>
+
+``-c`` names the render config (class names for the confusion matrix).  Runs
+on the CUDA card unless ``MODEL.DEVICE cpu`` is given; one process, one
+device, ``TEST.BATCH_SIZE`` images a batch.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from ..data import DataLoader, build_collate_fn, build_dataset
+from ..eval.tester import Tester
+from ..utils import load_json, setup_logger
+from .common import load_cfg
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description="GPU semantic segmentation testing")
+    parser.add_argument("-cfg", "--config-file", default="", metavar="FILE", type=str)
+    parser.add_argument("--saveres", action="store_true", help="save the result")
+    parser.add_argument("-c", "--config_path", default="renders/cityscapes.json",
+                        help="path to render config")
+    parser.add_argument("opts", default=None, nargs=argparse.REMAINDER)
+    return parser
+
+
+def make_tester(cfg, render_config, saveres: bool = False, logger=None) -> Tester:
+    name = render_config.get("name", cfg.MODEL.NAME)
+    logger = logger or setup_logger(name + "_test", cfg.OUTPUT_DIR, 0)
+    logger.info("#" * 20 + " Start Testing " + "#" * 20)
+    logger.info(f"INPUT_SIZE_TEST: {cfg.INPUT.INPUT_SIZE_TEST}")
+    test_data = build_dataset(cfg, mode="test", is_source=False)
+    test_loader = DataLoader(
+        test_data, batch_size=max(cfg.TEST.BATCH_SIZE, 1), shuffle=False,
+        drop_last=False, num_workers=cfg.DATA_PIPE.NUM_WORKERS,
+        worker_processes=cfg.DATA_PIPE.WORKER_PROCESSES,
+        collate_fn=build_collate_fn(cfg))
+    tester = Tester(cfg, logger, test_loader=test_loader,
+                    trainid2name=render_config.get("trainid2name"), saveres=saveres)
+    tester._load_checkpoint()
+    return tester
+
+
+def test(cfg, render_config, args):
+    return make_tester(cfg, render_config, saveres=args.saveres).test()
+
+
+def cli():
+    args = build_parser().parse_args()
+    render_config = load_json(args.config_path)
+    cfg = load_cfg(args)
+    print(f"Loaded configuration file {args.config_file}")
+    test(cfg, render_config, args)
+
+
+if __name__ == "__main__":
+    cli()

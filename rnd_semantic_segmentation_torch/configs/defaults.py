@@ -6,8 +6,10 @@ differs: ``MODEL.DEVICE`` is ``"cuda"`` here, and the port uses the CPU only
 when a caller sets ``MODEL.DEVICE cpu``.
 
 The port reads, for serving: MODEL.NAME, MODEL.NUM_CLASSES, MODEL.DEVICE,
-INPUT.INPUT_SIZE_TEST, AUG.NAME, TEST.QUANT, OUTPUT_DIR and resume; and for
-source training also INPUT.SOURCE_INPUT_SIZE_TRAIN, INPUT.IGNORE_LABEL,
+MODEL.FUSED_MBCONV (attn family, eval mode: the fused MBConv kernel),
+INPUT.INPUT_SIZE_TEST, AUG.NAME, TEST.QUANT, OUTPUT_DIR and resume; for
+evaluation also DATASETS.TEST, TEST.BATCH_SIZE, INPUT.IGNORE_LABEL,
+AUG.COLLATE and DATA_PIPE.NUM_WORKERS/PREFETCH; and for source training also INPUT.SOURCE_INPUT_SIZE_TRAIN, INPUT.IGNORE_LABEL,
 DATASETS.SOURCE_TRAIN/TEST/SYNTHETIC_LENGTH, AUG.COLLATE, SEED, DEBUG.NANS,
 DATA_PIPE.NUM_WORKERS/PREFETCH/SEED and the SOLVER keys EPOCHS, LR_METHOD,
 BASE_LR, LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
@@ -18,8 +20,8 @@ SOLVER.BN_RECAL_BATCHES, SOLVER.ASYNC_CHECKPOINT, DATA_PIPE.DEVICE_AUG,
 DATA_PIPE.WORKER_PROCESSES, DATA_PIPE.NATIVE_DECODE, DIST.*, DEBUG.CHECKIFY).
 The other keys belong to parts of the JAX package not yet ported and are kept
 so that their configs load.  The port computes in float32 whatever MODEL.DTYPE
-says, in training as in serving; MODEL.FREEZE_BN does not reach the gald
-family, here as in the JAX package.
+says, in training as in serving; MODEL.FREEZE_BN does not reach the gald and
+attn families, here as in the JAX package.
 """
 
 from .node import CfgNode

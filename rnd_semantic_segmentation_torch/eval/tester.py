@@ -1,33 +1,55 @@
-"""Evaluation head (counterpart of the JAX package's eval/tester.py).
+"""Evaluation loop and probability heads (counterpart of the JAX package's
+eval/tester.py).
 
-This slice has what the serving daemon uses: the model on its device, the
-checkpoint loader for reference-layout ``.pth`` files and the trainer's
-checkpoints (``resume <file.pth>`` or ``resume latest``), and the gald
-probability head ``_probs_impl``: decoder ``out2`` -> bilinear
-(align_corners=False) to the label size -> softmax over classes.  The
-multi-device eval and the metric loop come with a later slice.
+One loop for every ported family; the families differ in the probability head:
+  * gald — decoder ``out2`` -> bilinear (align_corners=False) to the label
+    size -> softmax over classes;
+  * attn — ``sigmoid(out_0)`` in float32, one channel per class; the mask is
+    its argmax.
+
+``Tester(cfg, logger)`` is what the serving daemon builds: the model on its
+device, the checkpoint loader for reference-layout ``.pth`` files and the
+trainer's checkpoints (``resume <file.pth>`` or ``resume latest``), and
+``_probs_impl``.  With a ``test_loader``, ``test()`` runs the metric loop:
+batches go to the device through the loader's prefetch, the argmax, the
+per-class areas and the confusion matrix are computed there, and their small
+results are fetched once after the loop; the summary (macro and micro
+mIoU/F1) is logged and ``<family>_confusion_matrix.json`` is written to
+OUTPUT_DIR.  Pseudo-label export (``saveres``) and quantized eval raise until
+their slices are ported; the confusion-matrix heat map, test-time
+augmentation (a deeplab option) and multi-device eval are not ported.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import os
+from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ckpt.checkpoint_io import latest_checkpoint
 from ..ckpt.torch_import import load_part, load_reference_checkpoint
+from ..data.loader import device_prefetch
 from ..models.build import build_segmentor
 from ..ops import resize_bilinear
 from ..train.segmentor import Segmentor
-from ..utils import resolve_device
+from ..utils import dump_json, resolve_device
+from .metrics import AverageMeter, confusion_matrix, intersection_and_union
 
 
 class Tester:
     __test__ = False  # not a pytest class
 
-    def __init__(self, cfg, logger):
+    def __init__(self, cfg, logger, test_loader=None,
+                 trainid2name: Optional[Dict] = None, saveres: bool = False):
+        if saveres:
+            raise NotImplementedError(
+                "--saveres (pseudo-label PNG export) comes with the self-distill slice")
         self.cfg = cfg
         self.logger = logger
+        self.test_loader = test_loader
+        self.trainid2name = trainid2name or {}
         self.device = resolve_device(cfg.MODEL.DEVICE)
         self.spec = build_segmentor(cfg)
         self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES)
@@ -64,4 +86,38 @@ class Tester:
             outputs, _ = self.segmentor(x)
             out = resize_bilinear(outputs[-1].float(), label_size, align_corners=False)
             return torch.softmax(out, dim=1)
+        if fam == "attn":
+            outputs, _ = self.segmentor(x)
+            return torch.sigmoid(outputs[0].float())
         raise NotImplementedError(fam)
+
+    # -- loop --------------------------------------------------------------------
+    @torch.inference_mode()
+    def test(self) -> Dict:
+        cfg = self.cfg
+        if self.test_loader is None:
+            raise ValueError("Tester.test() needs the test_loader it was built without")
+        if cfg.TEST.QUANT != "none":
+            raise NotImplementedError(
+                f"TEST.QUANT={cfg.TEST.QUANT}: quantized eval is not ported yet")
+        nc, ignore = cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL
+        pending = []  # per batch: areas [4,C] and confusion matrix, on the device
+        batches = device_prefetch(iter(self.test_loader), cfg.DATA_PIPE.PREFETCH,
+                                  self.device)
+        for batch in batches:
+            x = batch["image"].permute(0, 3, 1, 2).contiguous()
+            label = batch["label"]
+            pred = self._probs_impl(x, tuple(label.shape[1:3])).argmax(dim=1)
+            pending.append((torch.stack(intersection_and_union(pred, label, nc, ignore)),
+                            confusion_matrix(pred, label, nc, ignore)))
+
+        meter = AverageMeter(nc)
+        cmt = np.zeros((nc, nc), np.int64)
+        for areas, batch_cmt in pending:
+            meter.update(*areas.cpu().numpy())
+            cmt += batch_cmt.cpu().numpy()
+        self.confusion = cmt
+        summary = meter.summary(self.logger)
+        dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.spec.family}_confusion_matrix.json"),
+                  {"cmt": cmt.tolist(), "classes": list(self.trainid2name.values())})
+        return summary

@@ -1,8 +1,11 @@
 """Model registry (counterpart of the JAX package's models/build.py).
 
-MODEL.NAME is ``<family>_<backbone>``.  This slice of the port builds the
-``gald`` family (HarDNet68 + GCPA-CC); every other family raises
-NotImplementedError until its slice is ported.
+MODEL.NAME is ``<family>_<backbone>``.  The port builds the ``gald`` family
+(HarDNet68 + GCPA-CC) and the ``attn`` family (EfficientNet-B0..B4 encoder +
+attention-gated UNet decoder); every other family raises NotImplementedError
+until its slice is ported.  ``MODEL.FUSED_MBCONV`` reaches the attn encoder as
+a constructor argument: in eval mode its eligible MBConv blocks then run the
+fused kernel of ops/mbconv.py.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from .attn_unet import _DEPTH_MAP, AttnDecoder
+from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
 
 
@@ -52,8 +57,24 @@ def build_segmentor(cfg) -> SegmentorSpec:
             lr_mults={"encoder": 1.0, "decoder": 10.0},
             optimizer="adam", ckpt_prefix="Gald", disc_tap="hardnetout3",
         )
+    if family == "attn":
+        bb = backbone or "efficientnet-b2"
+        if bb not in _DEPTH_MAP:
+            raise NotImplementedError(f"attn backbone {bb!r}: one of {sorted(_DEPTH_MAP)}")
+        return SegmentorSpec(
+            family=family, backbone=bb,
+            modules={"encoder": EfficientNetEncoder(
+                         bb, fused_mbconv=bool(cfg.MODEL.FUSED_MBCONV)),
+                     "decoder": AttnDecoder(bb, num_classes=cfg.MODEL.NUM_CLASSES)},
+            lr_mults={"encoder": 1.0, "decoder": 10.0},
+            optimizer="adam", ckpt_prefix="Attn", disc_tap="reduction_5",
+        )
+    if family == "attnwrap":
+        raise NotImplementedError(
+            "model family 'attnwrap' (the single-module attn variant) comes with "
+            "the attn training slice")
     raise NotImplementedError(
-        f"model family {family!r} is not ported yet (the port builds 'gald')")
+        f"model family {family!r} is not ported yet (the port builds 'gald' and 'attn')")
 
 
 @torch.no_grad()
@@ -74,8 +95,10 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
         t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
-            fan_in = m.weight[0].numel()
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            # OIHW, or IOHW for a transposed conv: 4 of its 16 taps reach an output
+            fan_in = (m.weight[0].numel() if isinstance(m, nn.Conv2d)
+                      else m.weight.shape[0] * 4)
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                            * (1.7 / fan_in) ** 0.5)
             if m.bias is not None:

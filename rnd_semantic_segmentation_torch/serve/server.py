@@ -1,7 +1,8 @@
 """Micro-batched HTTP inference server (counterpart of the JAX package's serve/server.py).
 
 Concurrent requests are gathered into one device batch, run through the
-``Tester`` probability head the offline eval uses, and fanned back out.
+``Tester`` probability head the offline eval uses (gald: softmax over the
+classes; attn: one sigmoid per class), and fanned back out as argmax masks.
 
 Endpoints:
   * ``POST /predict``  image bytes (JPEG/PNG) -> palette-PNG mask

@@ -1,6 +1,7 @@
 """Segmentor: one forward for every family (counterpart of the JAX package's
-train/segmentor.py).  This slice has the gald branch:
-``decoder(x, encoder(x))``, whose discriminator tap is the last encoder tap.
+train/segmentor.py).  gald: ``decoder(x, encoder(x))``, whose discriminator
+tap is the last encoder tap.  attn: ``decoder(encoder(x))`` with five outputs
+at scales 1 to 1/16, tapped at ``reduction_5``; eval only so far.
 """
 
 from __future__ import annotations
@@ -27,13 +28,20 @@ class Segmentor(nn.Module):
         ``train=True`` puts every BatchNorm on batch statistics and updates
         its running statistics; ``train=False`` applies the running ones.
         ``label_size`` is for the families whose head resizes to the label;
-        gald's heads are at the input size already.
+        the gald and attn heads are at the input size already.
         """
+        fam = self.spec.family
+        if fam == "attn" and train:
+            raise NotImplementedError(
+                "attn training (drop-connect, Tversky/BCE losses, cosine warm-up) "
+                "comes with the attn training slice; the port evaluates and serves it")
         if self.training != train:
             self.train(train)
-        fam = self.spec.family
         if fam == "gald":
             taps = self.parts["encoder"](x)
             outs = self.parts["decoder"](x, taps)
             return outs, taps[3]
+        if fam == "attn":
+            endpoints = self.parts["encoder"](x)
+            return self.parts["decoder"](endpoints), endpoints["reduction_5"]
         raise NotImplementedError(fam)
