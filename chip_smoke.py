@@ -12,7 +12,10 @@ no result line on any failure.  Phases, each of which raises:
               float32 and bfloat16, at the shapes the main paths give it and
               more (the criss-cross backward also against autograd of the
               plain forward; the fused MBConv also against the unfused module
-              path), and its time beside its bound and the plain version's;
+              path), and its time beside its bound and the plain version's
+              (the fused MBConv also beside a tensor-core bound, after a
+              report of its instances: ptxas registers and spills, shared
+              memory, blocks per SM, HMMA instructions);
   4. serve    the GALD serving path: GALD (HarDNet68 + GCPA-CC, 19 classes, full
               width, seeded weights) behind the port's HTTP server at
               1024x512, 16 PNG requests from 8 threads; kernel launches are
@@ -51,6 +54,8 @@ import io
 import json
 import logging
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -80,6 +85,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # tensor cores at full float32 precision) and for bfloat16 (tensor cores)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# a product on the tensor cores: float32 as three TF32 passes (495 TFLOP/s
+# each), bfloat16 at its own rate; the rest of the work stays at 67 TFLOP/s
+PEAK_TC_FLOP_PER_S = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 
 # serving geometry: (W, H) = (1024, 512); the /32 map is 16x32 with 256 channels
 SERVE_W, SERVE_H = 1024, 512
@@ -144,9 +152,13 @@ def phase_device() -> str:
     return line
 
 
+BUILD_OUTPUT = {}
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = native.build(ccattn.SOURCES + mbconv.SOURCES)
+    BUILD_OUTPUT.update({name: out for name, (_, out) in built.items()})
     for name, (seconds, out) in built.items():
         log(f"[build] {name}: {seconds:.2f} s")
         for line in out.splitlines():
@@ -300,16 +312,74 @@ def mbconv_inputs(shape, f, dtype, seed=0):
     return x, w_exp, rand(0.5, 1.5), rand(-0.2, 0.2), w_dw, rand(0.5, 1.5), rand(-0.2, 0.2)
 
 
-def mbconv_bound(shape, f, dtype):
-    """Least time for the function at ``shape``: x and the weights read once
-    and y written once, against the product (2C per output), the stencil
-    (2k^2) and the two affines and swishes (12) at the input type's peak."""
+def _mbconv_bytes_s(shape, f, dtype):
+    """x and the weights read once and y written once, over the HBM rate."""
     b, c, h, w, k = shape
     item = torch.tensor([], dtype=dtype).element_size()
     nbytes = item * b * h * w * (c + f) + item * f * c + 4 * f * (k * k + 4)
-    flops = b * h * w * f * (2 * c + 2 * k * k + 12)
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOP_PER_S[dtype]
+    return nbytes / PEAK_BYTES_PER_S
+
+
+def _bound(t_bytes, t_ops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mbconv_bound(shape, f, dtype):
+    """Least time for the function at ``shape``: its bytes against the product
+    (2C per output), the stencil (2k^2) and the two affines and swishes (12)
+    at the input type's peak."""
+    b, c, h, w, k = shape
+    flops = b * h * w * f * (2 * c + 2 * k * k + 12)
+    return _bound(_mbconv_bytes_s(shape, f, dtype), flops / PEAK_FLOP_PER_S[dtype])
+
+
+def mbconv_tc_bound(shape, f, dtype):
+    """``mbconv_bound`` for a kernel whose product runs on the tensor cores:
+    the same bytes, against the product (2C per output) at the tensor-core
+    rate plus the stencil and swishes (2k^2 + 12) at 67 TFLOP/s."""
+    b, c, h, w, k = shape
+    outputs = b * h * w * f
+    t_ops = (outputs * 2 * c / PEAK_TC_FLOP_PER_S[dtype]
+             + outputs * (2 * k * k + 12) / PEAK_FLOP_PER_S[torch.float32])
+    return _bound(_mbconv_bytes_s(shape, f, dtype), t_ops)
+
+
+_INSTANCE = re.compile(r"fused_mbconv_fwd_kernelI(f|13__nv_bfloat16)Li(\d)E")
+
+
+def _instance_name(mangled: str) -> str:
+    m = _INSTANCE.search(mangled)
+    return f"{'float32' if m.group(1) == 'f' else 'bfloat16'} k={m.group(2)}" if m else ""
+
+
+def mbconv_build_report() -> None:
+    """ptxas' registers and spills of each instance, the runtime's view of
+    its shared memory and residency, and the HMMA (tensor-core) instructions
+    in its machine code."""
+    current = ""
+    for line in BUILD_OUTPUT.get(mbconv.SOURCE, "").splitlines():
+        if "Compiling entry function" in line:
+            current = _instance_name(line)
+        elif current and ("registers" in line or "spill" in line):
+            log(f"[kernel] ptxas {current}: {line.strip()}")
+    for k in mbconv.KERNEL_SIZES:
+        for dtype in (torch.float32, torch.bfloat16):
+            log(f"[kernel] runtime {str(dtype)[6:]} k={k}: {mbconv.instance_info(k, dtype)}")
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        log("[kernel] HMMA instructions: not measured (no cuobjdump)")
+        return
+    sass = subprocess.run([cuobjdump, "-sass", native.library_path(mbconv.SOURCE)],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts, current = {}, ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = _instance_name(line)
+        elif current and "HMMA" in line:
+            counts[current] = counts.get(current, 0) + 1
+    log(f"[kernel] HMMA instructions in {os.path.basename(native.library_path(mbconv.SOURCE))}"
+        f" by instance (cuobjdump -sass): {counts or 'none'}")
 
 
 def _mbconv_compare(shape, f, dtype):
@@ -346,6 +416,7 @@ def phase_kernels_mbconv() -> dict:
     shapes = attn_mbconv_shapes()
     if sum(shapes.values()) != MBCONV_LAUNCHES_PER_FORWARD or len(shapes) != 8:
         raise AssertionError(f"{ATTN_MODEL} at {ATTN_SIZE}: fused blocks {shapes}")
+    mbconv_build_report()
     before = mbconv.KERNEL_LAUNCHES
     for shape in MBCONV_ODD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -361,9 +432,11 @@ def phase_kernels_mbconv() -> dict:
                 ms = graph_ms(lambda: mbconv.fused_mbconv_core(*args))
                 plain_ms = graph_ms(lambda: mbconv.fused_mbconv_core_plain(*args))
             bound_ms, bound_by = mbconv_bound(shape, f, dtype)
+            tc_bound_ms, tc_bound_by = mbconv_tc_bound(shape, f, dtype)
             entry = {"shape": list(shape), "f": f, "blocks": count, "max_abs_err": err,
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
+                     "bound_by": bound_by, "tc_bound_ms": tc_bound_ms,
+                     "tc_bound_by": tc_bound_by}
             if dtype == torch.float32:
                 # the module's own two routes through the segment, from one set of
                 # weights: the fused one folds both BatchNorms and launches the
@@ -382,24 +455,34 @@ def phase_kernels_mbconv() -> dict:
                 entry["segment_max_abs_err"] = seg_err
                 per_shape.append(entry)
                 log(f"[kernel]   x{count} blocks: kernel {ms * 1e3:.2f} us, bound "
-                    f"{bound_ms * 1e3:.2f} us ({bound_by}), plain version "
+                    f"{bound_ms * 1e3:.2f} us ({bound_by}), tensor-core bound "
+                    f"{tc_bound_ms * 1e3:.2f} us ({tc_bound_by}), plain version "
                     f"{plain_ms * 1e3:.2f} us; module segment fused (BN folds + kernel) "
                     f"{entry['segment_ms'] * 1e3:.2f} us vs unfused (conv, BN, swish, conv, "
                     f"BN, swish: library calls) {entry['unfused_ms'] * 1e3:.2f} us, "
+                    f"unfused / kernel {entry['unfused_ms'] / ms:.2f}, "
                     f"fused vs unfused max abs err {seg_err:.3e}")
                 if shape == MAIN_MBCONV_SHAPE:
                     main = {k2: entry[k2] for k2 in ("max_abs_err", "ms", "plain_ms",
-                                                     "bound_ms", "bound_by", "unfused_ms")}
+                                                     "bound_ms", "bound_by", "tc_bound_ms",
+                                                     "tc_bound_by", "unfused_ms")}
             else:
+                per_shape[-1]["bf16"] = entry
                 log(f"[kernel]   bfloat16: kernel {ms * 1e3:.2f} us, bound "
-                    f"{bound_ms * 1e3:.2f} us ({bound_by}), plain version "
-                    f"{plain_ms * 1e3:.2f} us")
+                    f"{bound_ms * 1e3:.2f} us ({bound_by}), tensor-core bound "
+                    f"{tc_bound_ms * 1e3:.2f} us ({tc_bound_by}), plain version "
+                    f"{plain_ms * 1e3:.2f} us; bfloat16 / float32 kernel "
+                    f"{ms / per_shape[-1]['ms']:.2f}")
     totals = {key: sum(e[key] * e["blocks"] for e in per_shape)
-              for key in ("ms", "bound_ms", "plain_ms", "segment_ms", "unfused_ms")}
+              for key in ("ms", "bound_ms", "tc_bound_ms", "plain_ms", "segment_ms",
+                          "unfused_ms")}
     log(f"[kernel] fused_mbconv_fwd over the {MBCONV_LAUNCHES_PER_FORWARD} blocks of one "
         f"B={ATTN_BATCH} forward, float32: kernel {totals['ms']:.3f} ms, bound "
-        f"{totals['bound_ms']:.3f} ms, plain version {totals['plain_ms']:.3f} ms, module "
-        f"segment fused {totals['segment_ms']:.3f} ms vs unfused {totals['unfused_ms']:.3f} ms")
+        f"{totals['bound_ms']:.3f} ms, tensor-core bound {totals['tc_bound_ms']:.3f} ms, "
+        f"plain version {totals['plain_ms']:.3f} ms, module segment fused "
+        f"{totals['segment_ms']:.3f} ms vs unfused {totals['unfused_ms']:.3f} ms, "
+        f"unfused / kernel {totals['unfused_ms'] / totals['ms']:.2f}; bfloat16 kernel "
+        f"{sum(e['bf16']['ms'] * e['blocks'] for e in per_shape):.3f} ms")
     if not main or mbconv.KERNEL_LAUNCHES == before:
         raise AssertionError("the main fused-MBConv shape was not measured")
     return {**main, "shape": list(MAIN_MBCONV_SHAPE), "per_shape": per_shape,

@@ -12,8 +12,10 @@ added on stride-1 blocks of equal width.  BN eps 1e-3, momentum 0.01.
 With ``fused_mbconv`` an eligible block (eval mode, expansion, stride 1) runs
 its expand conv, both BatchNorms, both swishes and the depthwise conv as one
 call of ``ops.mbconv.fused_mbconv_core``: one CUDA kernel launch for CUDA
-tensors.  The BatchNorm affines are folded from the live buffers at every
-call, so weights loaded after construction are honoured.
+tensors.  The BatchNorm affines and the converted weights are folded once per
+weight state and cached on the block, keyed on the ``_version`` and storage of
+every tensor the fold reads and on the input's type, so weights loaded or
+changed in place after construction are honoured.
 """
 
 from __future__ import annotations
@@ -120,6 +122,7 @@ class MBConvBlock(nn.Module):
         self.se_ratio = se_ratio
         self.drop_connect_rate = drop_connect_rate
         self.fused_mbconv = fused_mbconv
+        self._fold_key, self._folded = None, None
         filters = in_filters * expand_ratio
         bn = lambda ch: BatchNorm(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
         if expand_ratio != 1:
@@ -140,12 +143,32 @@ class MBConvBlock(nn.Module):
                 and fused_mbconv_applies(x.shape, self.kernel,
                                          self.in_filters * self.expand_ratio))
 
+    def train(self, mode: bool = True):
+        self._fold_key, self._folded = None, None
+        return super().train(mode)
+
+    def _fold(self, dtype: torch.dtype):
+        """``(w_exp, s0, b0, w_dw, s1, b1)`` for the fused core.  Cached when
+        autograd is off; with it on (no cache) the fold keeps its graph."""
+        def fold():
+            s0, b0 = fold_bn(self._bn0)
+            s1, b1 = fold_bn(self._bn1)
+            return (self._expand_conv.weight.flatten(1).to(dtype), s0, b0,
+                    self._depthwise_conv.weight.squeeze(1).float(), s1, b1)
+
+        if torch.is_grad_enabled():
+            return fold()
+        read = (self._expand_conv.weight, self._depthwise_conv.weight,
+                *(getattr(bn, name) for bn in (self._bn0, self._bn1)
+                  for name in ("weight", "bias", "running_mean", "running_var")))
+        key = (dtype,) + tuple((t._version, t.data_ptr(), t.device) for t in read)
+        if key != self._fold_key:
+            self._folded, self._fold_key = fold(), key
+        return self._folded
+
     def segment_fused(self, x: torch.Tensor) -> torch.Tensor:
         """Expand conv to second swish in one ``fused_mbconv_core`` call."""
-        s0, b0 = fold_bn(self._bn0)
-        s1, b1 = fold_bn(self._bn1)
-        w_exp = self._expand_conv.weight.flatten(1).to(x.dtype)
-        w_dw = self._depthwise_conv.weight.squeeze(1).float()
+        w_exp, s0, b0, w_dw, s1, b1 = self._fold(x.dtype)
         return fused_mbconv_core(x.contiguous(), w_exp, s0, b0, w_dw, s1, b1)
 
     def segment_unfused(self, x: torch.Tensor) -> torch.Tensor:

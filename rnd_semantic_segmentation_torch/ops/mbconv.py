@@ -38,13 +38,13 @@ SOURCES = (SOURCE,)
 KERNEL_LAUNCHES = 0
 
 # The kernel is instantiated for these depthwise sizes (EfficientNet's).  Its
-# shared memory (a 16x16 tile with halo for 32 channels) does not grow with C,
+# shared memory (a 16x16 tile with halo for 48 channels) does not grow with C,
 # F, H or W, so the only other limits are its flat grid and its 32-bit plane
-# offsets.
+# offsets.  It takes any pointer aligned to its element.
 KERNEL_SIZES = (3, 5)
 MAX_BLOCKS = 2 ** 31 - 1
 TILE = 16
-CHANNELS_PER_BLOCK = 32
+CHANNELS_PER_BLOCK = 48
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,6 +77,21 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
+
+
+def instance_info(k: int, dtype: torch.dtype) -> dict:
+    """What the runtime reports for the kernel's (k, dtype) instance:
+    registers a thread, local (spill) bytes, dynamic shared memory and
+    resident blocks per SM.  Needs a card."""
+    lib = _library()
+    fn = lib.fused_mbconv_info
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    res = (ctypes.c_int * 4)()
+    err = fn(k, _DTYPE_CODES[dtype], res)
+    if err != 0:
+        raise RuntimeError(f"fused_mbconv_info failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm"), res))
 
 
 def _check(x, w_exp, s0, b0, w_dw, s1, b1) -> None:

@@ -39,6 +39,20 @@ SHAPES = [((2, 16, 16, 8), 3), ((1, 12, 20, 16), 5), ((2, 8, 8, 24), 3)]  # NHWC
 B2_SHAPES = [(24, 128, 3), (48, 64, 5), (88, 32, 3), (88, 32, 5), (120, 32, 5),
              (208, 16, 5), (208, 16, 3), (352, 16, 3)]
 ODD_SHAPES = [(2, 8, 7, 11, 3), (1, 16, 3, 5, 5), (2, 24, 37, 21, 5)]  # B, C, H, W, k
+# (b, c, h, w, k, f, x scale, x at an offset of one element)
+EDGE_CASES = {
+    "tf32-sensitive": (1, 352, 8, 8, 3, 48, 20.0, False),
+    "c12": (2, 12, 9, 9, 3, 36, 1.0, False),
+    "c20": (2, 20, 12, 10, 5, 60, 1.0, False),
+    "f50": (1, 16, 16, 16, 3, 50, 1.0, False),
+    "hw17": (2, 24, 17, 17, 5, 72, 1.0, False),
+    "hw33": (1, 24, 33, 33, 3, 72, 1.0, False),
+    "h17-w33": (1, 24, 17, 33, 5, 72, 1.0, False),
+    "offset-view": (2, 24, 16, 16, 3, 72, 1.0, True),
+    "offset-view-odd": (1, 20, 12, 20, 5, 60, 1.0, True),
+    "smaller-than-halo": (2, 16, 2, 3, 5, 48, 1.0, False),
+    "one-pixel": (1, 40, 1, 1, 3, 120, 1.0, False),
+}
 
 
 def _inputs(seed, b, h, w, c, f, k):
@@ -243,6 +257,88 @@ def test_mbconv_block_fused_matches_unfused(kernel, monkeypatch):
     assert (moved - out).abs().max() > 0.01
 
 
+def _count_folds(monkeypatch):
+    from rnd_semantic_segmentation_torch.models import efficientnet
+    calls = []
+    fold = efficientnet.fold_bn
+    monkeypatch.setattr(efficientnet, "fold_bn", lambda bn: calls.append(bn) or fold(bn))
+    return lambda: len(calls) // 2  # one fold reads both BatchNorms
+
+
+def test_mbconv_block_folds_once_per_weight_state(monkeypatch):
+    folds = _count_folds(monkeypatch)
+    block = _block().eval()
+    x = torch.from_numpy(np.random.RandomState(9).randn(1, 8, 10, 10).astype(np.float32))
+    with torch.no_grad():
+        first, second = block(x), block(x)
+        assert folds() == 1
+        block(x.to(torch.bfloat16).float())  # same dtype after the round trip: no refold
+        assert folds() == 1
+    torch.testing.assert_close(first, second, rtol=0, atol=0)
+
+
+def test_mbconv_block_refolds_after_load_state_dict(monkeypatch):
+    folds = _count_folds(monkeypatch)
+    block = _block().eval()
+    x = torch.from_numpy(np.random.RandomState(10).randn(1, 8, 10, 10).astype(np.float32))
+    state = {k: v.clone() for k, v in block.state_dict().items()}
+    state["_bn1.running_var"] *= 3.0
+    state["_expand_conv.weight"] *= -1.0
+    with torch.no_grad():
+        before = block(x)
+        block.load_state_dict(state)
+        after = block(x)
+        assert folds() == 2
+        block.fused_mbconv = False
+        np.testing.assert_allclose(after.numpy(), block(x).numpy(), rtol=TOL, atol=TOL)
+    assert (after - before).abs().max() > 0.01
+
+
+def test_mbconv_block_refolds_after_train_then_eval(monkeypatch):
+    folds = _count_folds(monkeypatch)
+    block = _block().eval()
+    x = torch.from_numpy(np.random.RandomState(11).randn(2, 8, 10, 10).astype(np.float32))
+    with torch.no_grad():
+        block(x)
+        block.train()(x)       # batch statistics: updates the running buffers
+        assert folds() == 1    # train mode never folds
+        out = block.eval()(x)
+        assert folds() == 2
+        block.fused_mbconv = False
+        np.testing.assert_allclose(out.numpy(), block(x).numpy(), rtol=TOL, atol=TOL)
+
+
+def _round_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 does."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_tolerance_catches_a_single_tf32_pass():
+    """The float32 tolerance (1e-4 + 1e-4*|plain|) holds the kernel to
+    float32 accuracy: the plain version on x and w_exp rounded to TF32, which
+    is what one TF32 pass of the product sees, misses it, while the plain
+    version itself agrees with the JAX oracle.  The inputs are the
+    "tf32-sensitive" case of the kernel test below: C=352 (the widest fused
+    product of B2) with |x| around 10."""
+    b, c, h, w, k, f, scale, _ = EDGE_CASES["tf32-sensitive"]
+    args = list(_to_port(_inputs(9, b, h, w, c, f, k)))
+    args[0] = args[0] * scale
+    ref = fused_mbconv_core_plain(*args)
+    assert _round_tf32(torch.tensor([1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12])).tolist() == [
+        1.0 + 2.0 ** -10, 1.0]
+    rounded = fused_mbconv_core_plain(_round_tf32(args[0]), _round_tf32(args[1]), *args[2:])
+    bad = (rounded - ref).abs() > TOL + TOL * ref.abs()
+    assert bad.float().mean() > 0.05
+    jargs = [a.numpy() for a in args]
+    oracle = fused_mbconv_core_jnp(jnp.asarray(jargs[0].transpose(0, 2, 3, 1)),
+                                   jnp.asarray(jargs[1].T), *(jnp.asarray(a) for a in jargs[2:4]),
+                                   jnp.asarray(jargs[4].transpose(1, 2, 0)),
+                                   *(jnp.asarray(a) for a in jargs[5:]))
+    np.testing.assert_allclose(_nhwc(ref), np.asarray(oracle), rtol=TOL, atol=TOL)
+
+
 def test_train_mode_and_ineligible_blocks_never_take_the_fused_path(monkeypatch):
     from rnd_semantic_segmentation_torch.models import efficientnet
 
@@ -274,6 +370,7 @@ def test_b2_block_list_gives_the_17_fused_launches():
 # -- on the card --------------------------------------------------------------
 
 def _cuda_inputs(b, c, h, w, k, f, dtype):
+    """``_inputs`` with seed 9 on the card."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: a CUDA kernel has no interpret mode")
     torch.backends.cudnn.allow_tf32 = False
@@ -307,6 +404,27 @@ def test_cuda_kernel_matches_plain_at_the_b2_shapes(c, hw, k, batch, dtype):
 @pytest.mark.parametrize("b,c,h,w,k", ODD_SHAPES + [(1, 8, 20, 33, 3), (3, 40, 1, 1, 5)])
 def test_cuda_kernel_matches_plain_at_odd_shapes(b, c, h, w, k, dtype):
     _assert_kernel_matches_plain(_cuda_inputs(b, c, h, w, k, 3 * c, dtype), dtype)
+
+
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", list(EDGE_CASES))
+def test_cuda_kernel_matches_plain_at_edge_cases(case, dtype):
+    """C no multiple of the mma's K step, F no multiple of the channel chunk,
+    maps just past a tile edge, x at an address aligned only to its element,
+    images smaller than the halo, and inputs where one TF32 pass would fail."""
+    b, c, h, w, k, f, scale, offset = EDGE_CASES[case]
+    args = list(_cuda_inputs(b, c, h, w, k, f, dtype))
+    x = args[0] * scale
+    if offset:
+        buf = torch.empty(x.numel() + 1, dtype=dtype, device=x.device)
+        buf[1:].copy_(x.flatten())
+        x = buf[1:].view(x.shape)
+        assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    args[0] = x
+    _assert_kernel_matches_plain(tuple(args), dtype)
 
 
 @pytest.mark.cuda
