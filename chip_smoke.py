@@ -11,8 +11,9 @@ no result line on any failure.  Phases, each of which raises:
   3. kernels  each kernel against its plain PyTorch version on the card, in
               float32 and bfloat16, at the shapes the main paths give it and
               more (the criss-cross backward also against autograd of the
-              plain forward; the fused MBConv also against the unfused module
-              path), and its time beside its bound and the plain version's
+              plain forward, and two of its calls for equal bits; the fused
+              MBConv also against the unfused module path), and its time
+              beside its bound and the plain version's
               (the fused MBConv also beside a tensor-core bound, after a
               report of its instances: ptxas registers and spills, shared
               memory, blocks per SM, HMMA instructions);
@@ -224,14 +225,50 @@ def cc_bwd_bound(shape, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def bwd_pass_us(q, k, v, g, calls: int = 10) -> list:
+    """Median device time of each of the backward's three kernel launches
+    (row statistics, columns, rows and the sum) over the last ``calls`` of
+    ``calls + 5`` calls, from torch.profiler's CUDA activity (the tracer may
+    miss the first launches after it starts, so the window ends on whole
+    calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 5):
+            ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if "cc_attention_bwd_kernel" in e.name),
+                    key=lambda e: e.time_range.start)[-3 * calls:]
+    if len(events) != 3 * calls:
+        raise AssertionError(f"profiled {len(events)} backward launches, want {3 * calls}")
+    return [float(np.median([e.device_time for e in events[i::3]])) for i in range(3)]
+
+
 def phase_kernels_bwd() -> dict:
+    """Kernel #2 against its plain version and autograd of the plain forward
+    at every shape of CC_SHAPES, in float32 and bfloat16, with its time beside
+    its bound and the plain version's; two calls at the training shape must
+    give the same bits.  First, what the runtime says of the instances that
+    each pass takes at the training shape and at 64x128."""
+    for shape in (TRAIN_CC_SHAPE, CC_SHAPES[-1]):
+        for i, name in enumerate(ccattn.BWD_PASSES):
+            log(f"[kernel] cc_attention_bwd {shape} float32, pass {i + 1} ({name}): "
+                f"{ccattn.bwd_pass_info(shape, torch.float32, i)}")
     result = {}
-    for shape in CC_SHAPES[:-1]:
+    for shape in CC_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = cc_inputs(shape, dtype)
             g = cc_inputs(shape, dtype, seed=1)[2]
             got = ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
             torch.cuda.synchronize()
+            if shape == TRAIN_CC_SHAPE:
+                again = ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                log(f"[kernel] cc_attention_bwd {shape} {str(dtype)[6:]}: two calls "
+                    f"give {'the same bits' if same else 'DIFFERENT BITS'}")
+                if not same:
+                    raise AssertionError(f"cc_attention_bwd is not repeatable at {shape} "
+                                         f"{dtype}")
             plain = ccattn.cc_attention_core_bwd_plain(q, k, v, g)
             leaves = [t.clone().requires_grad_() for t in (q, k, v)]
             auto = torch.autograd.grad(ccattn.cc_attention_core_plain(*leaves), leaves, g)
@@ -255,6 +292,10 @@ def phase_kernels_bwd() -> dict:
             bound_ms, bound_by = cc_bwd_bound(shape, dtype)
             log(f"[kernel]   {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
                 f"({bound_by}), plain version {plain_ms * 1e3:.2f} us")
+            if dtype == torch.float32:
+                passes = bwd_pass_us(q, k, v, g)
+                log(f"[kernel]   by pass (torch.profiler, device us): " + ", ".join(
+                    f"{name} {us:.2f}" for name, us in zip(ccattn.BWD_PASSES, passes)))
             if shape == TRAIN_CC_SHAPE and dtype == torch.float32:
                 result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}

@@ -15,9 +15,10 @@ DATA_PIPE.NUM_WORKERS/PREFETCH/SEED and the SOLVER keys EPOCHS, LR_METHOD,
 BASE_LR, LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
 LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP, ACCUM_STEPS, CHECKPOINT_PERIOD and
 KEEP_CHECKPOINTS.  A training knob whose counterpart is not ported yet raises
-NotImplementedError when it is set (MODEL.WEIGHTS, SOLVER.REMAT,
-SOLVER.BN_RECAL_BATCHES, SOLVER.ASYNC_CHECKPOINT, DATA_PIPE.DEVICE_AUG,
-DATA_PIPE.WORKER_PROCESSES, DATA_PIPE.NATIVE_DECODE, DIST.*, DEBUG.CHECKIFY).
+NotImplementedError when it is set (MODEL.WEIGHTS, MODEL.REMAT_BLOCKS,
+SOLVER.REMAT, SOLVER.BN_RECAL_BATCHES, SOLVER.ASYNC_CHECKPOINT,
+DATA_PIPE.DEVICE_AUG, DATA_PIPE.WORKER_PROCESSES, DATA_PIPE.NATIVE_DECODE,
+DIST.*, DEBUG.CHECKIFY).
 The other keys belong to parts of the JAX package not yet ported and are kept
 so that their configs load.  The port computes in float32 whatever MODEL.DTYPE
 says, in training as in serving; MODEL.FREEZE_BN does not reach the gald and

@@ -9,7 +9,8 @@ One loop for every ported family; the families differ in the probability head:
 
 ``Tester(cfg, logger)`` is what the serving daemon builds: the model on its
 device, the checkpoint loader for reference-layout ``.pth`` files and the
-trainer's checkpoints (``resume <file.pth>`` or ``resume latest``), and
+trainer's checkpoints (``resume <file.pth>``; ``resume latest`` or an empty
+``resume`` takes the newest ``{Prefix}-N.pth`` in OUTPUT_DIR), and
 ``_probs_impl``.  With a ``test_loader``, ``test()`` runs the metric loop:
 batches go to the device through the loader's prefetch, the argmax, the
 per-class areas and the confusion matrix are computed there, and their small
@@ -58,13 +59,15 @@ class Tester:
     # -- checkpoint ----------------------------------------------------------
     def _load_checkpoint(self):
         path = self.cfg.resume
-        if path == "latest":
+        if path in ("", "latest"):
+            # an empty resume evaluates the newest checkpoint in OUTPUT_DIR, as
+            # `latest` does: the train_src -> test loop of the JAX Tester
             path = latest_checkpoint(self.cfg.OUTPUT_DIR, self.spec.ckpt_prefix)
-        if not path:
-            raise FileNotFoundError(
-                f"resume={self.cfg.resume or '(empty)'}: the port needs `resume "
-                f"<file.pth>`, or `resume latest` with a {self.spec.ckpt_prefix}-N.pth "
-                f"in OUTPUT_DIR {self.cfg.OUTPUT_DIR!r}")
+            if not path:
+                raise FileNotFoundError(
+                    f"resume={self.cfg.resume or '(empty)'}: no "
+                    f"{self.spec.ckpt_prefix}-N.pth checkpoint in OUTPUT_DIR "
+                    f"{self.cfg.OUTPUT_DIR!r}; pass `resume <file.pth>` or train first")
         if not path.endswith(".pth"):
             raise NotImplementedError(
                 f"resume={path}: the port reads reference-layout .pth files only "

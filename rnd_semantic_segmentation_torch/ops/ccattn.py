@@ -10,9 +10,12 @@ q, k ``[B,H,W,Cq]``, v ``[B,H,W,C]``.
 tensors go through ``CrissCrossFunction``, whose forward is the kernel in
 ``csrc/ccattn_fwd.cu`` and whose backward is the kernel in
 ``csrc/ccattn_bwd.cu`` (or they raise); the backward recomputes the attention
-from the saved q, k, v, as the JAX package's custom VJP does.  CPU tensors go
-to ``cc_attention_core_plain`` under ordinary autograd.  ``KERNEL_LAUNCHES``
-counts forward launches and ``BWD_KERNEL_LAUNCHES`` backward calls.
+from the saved q, k, v, as the JAX package's custom VJP does, with one block
+per image row or column in three passes: the row branch's softmax partials,
+the column branch in full (joint statistics and its contributions), then the
+row branch and the sum.  CPU tensors go to ``cc_attention_core_plain`` under
+ordinary autograd.  ``KERNEL_LAUNCHES`` counts forward launches and
+``BWD_KERNEL_LAUNCHES`` backward calls.
 """
 
 from __future__ import annotations
@@ -33,10 +36,25 @@ BWD_KERNEL_LAUNCHES = 0
 # The forward keeps H+W energies and the Cq query values in dynamic shared
 # memory, under the 48 KB a block gets without opting in to more.
 MAX_H_PLUS_W_PLUS_CQ = 12000
-# The backward keeps the H+W attention values, the H+W values <g, v_j>, the Cq
-# query values and the C gradient values of one query: 2(H+W)+Cq+C floats,
-# under the same 48 KB.
-MAX_BWD_SHARED_FLOATS = 12000
+# The backward runs one block per image column and per image row (rows longer
+# than BWD_TILE pixels in tiles of BWD_TILE).  A block keeps its two float32
+# [queries, keys+1] matrices and, at the least, two stages of BWD_SLICE-channel
+# slices of its operands in dynamic shared memory, which must fit the
+# MAX_BWD_SHARED_BYTES a block can opt in to on the H100: H <= 137 and
+# W <= 259, whatever Cq and C are.
+BWD_SLICE, BWD_TILE = 32, 64
+MAX_BWD_SHARED_BYTES = 232448
+
+
+def bwd_shared_bytes(h: int, w: int) -> int:
+    """Dynamic shared memory of the backward's largest block at H x W with its
+    operands in slices (``pass_floats`` in csrc/ccattn_bwd.cu)."""
+    def rect(nq, nk):
+        return -(-2 * nq * (nk + 1) // 4) * 4 + 4 * nq + 2 * (nq + nk) * (BWD_SLICE + 4)
+
+    rows = [rect(w, w)] if w <= BWD_TILE else [rect(BWD_TILE, w), rect(w, BWD_TILE)]
+    return 4 * max(rect(h, h), *rows)
+
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -108,6 +126,26 @@ def _library(source: str) -> ctypes.CDLL:
     return lib
 
 
+BWD_PASSES = ("row statistics", "columns", "rows and the sum")
+
+
+def bwd_pass_info(shape, dtype: torch.dtype, pass_index: int) -> dict:
+    """What the runtime reports for pass ``pass_index`` of the backward at
+    ``shape`` = (B, H, W, Cq, C): registers a thread, local (spill) bytes,
+    dynamic shared memory, resident blocks per SM, whether the operands are
+    staged whole, the blocks of the grid and the pixels of a block's line or
+    row tile.  Needs a card."""
+    fn = _library(BWD_SOURCE).cc_attention_bwd_info
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    res = (ctypes.c_int * 7)()
+    err = fn(*shape, _DTYPE_CODES[dtype], pass_index, res)
+    if err != 0:
+        raise RuntimeError(f"cc_attention_bwd_info failed with CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "smem_bytes", "blocks_per_sm", "whole",
+                     "blocks", "tile"), res))
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
@@ -156,8 +194,9 @@ def cc_attention_core_cuda(q: torch.Tensor, k: torch.Tensor,
 
 def cc_attention_core_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    """Launches the backward kernel (its two passes) on the current stream and
-    returns (dq, dk, dv) in the inputs' type; raises on what it can't take."""
+    """Launches the backward kernel (its three passes: row statistics, column
+    branch, row branch and sum) on the current stream and returns (dq, dk, dv)
+    in the inputs' type; raises on what it can't take."""
     global BWD_KERNEL_LAUNCHES
     _check(q, k, v)
     if g.device != q.device or g.dtype != q.dtype:
@@ -168,23 +207,26 @@ def cc_attention_core_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                          f"{tuple(v.shape)}, got {tuple(g.shape)}")
     b, h, w, cq = q.shape
     c = v.shape[-1]
-    if 2 * (h + w) + cq + c > MAX_BWD_SHARED_FLOATS:
-        raise ValueError(f"cc_attention_core_bwd: 2(H+W)+Cq+C = {2 * (h + w) + cq + c} "
-                         f"exceeds the kernel's shared-memory limit "
-                         f"{MAX_BWD_SHARED_FLOATS}")
+    if bwd_shared_bytes(h, w) > MAX_BWD_SHARED_BYTES:
+        raise ValueError(f"cc_attention_core_bwd: H x W = {h} x {w} needs "
+                         f"{bwd_shared_bytes(h, w)} bytes of shared memory in a block, "
+                         f"over the {MAX_BWD_SHARED_BYTES} it can have (H <= 137, "
+                         f"W <= 259)")
     if q.device.type != "cuda":
         raise ValueError(f"cc_attention_core_bwd_cuda: tensors on {q.device}, not CUDA")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if dv.numel() == 0 or dq.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # float32 scratch: the attention and its energy gradient, per query
-    ws = torch.empty((2, b, h, w, h + w), dtype=torch.float32, device=q.device)
+    # float32 scratch: each query's softmax statistics, and the column
+    # branch's contributions to dq, dk and dv of each pixel
+    stats = torch.empty((b, h, w, 3), dtype=torch.float32, device=q.device)
+    contrib = torch.empty((b, h, w, 2 * cq + c), dtype=torch.float32, device=q.device)
     lib = _library(BWD_SOURCE)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.cc_attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                    g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                                   dv.data_ptr(), ws[0].data_ptr(), ws[1].data_ptr(),
+                                   dv.data_ptr(), stats.data_ptr(), contrib.data_ptr(),
                                    b, h, w, cq, c, _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"cc_attention_bwd launch failed with CUDA error {err}")

@@ -42,6 +42,7 @@ def _refuse_unported(cfg) -> None:
     none is silently ignored."""
     waiting = {
         "MODEL.WEIGHTS (pretrained backbone import)": bool(cfg.MODEL.WEIGHTS),
+        "MODEL.REMAT_BLOCKS (per-block rematerialization)": bool(cfg.MODEL.REMAT_BLOCKS),
         "SOLVER.BN_RECAL_BATCHES > 0": cfg.SOLVER.BN_RECAL_BATCHES > 0,
         "SOLVER.ASYNC_CHECKPOINT": bool(cfg.SOLVER.ASYNC_CHECKPOINT),
         "DATA_PIPE.DEVICE_AUG": bool(cfg.DATA_PIPE.DEVICE_AUG),

@@ -194,21 +194,86 @@ def test_function_backward_takes_a_permuted_gradient():
         ccattn.CrissCrossFunction.backward(ctx, torch.from_numpy(arrays[3]).bfloat16())
 
 
-@pytest.mark.parametrize("case", ["g_dtype", "g_noncontiguous", "smem_limit", "cpu"])
+def _longest_bwd_side(side):
+    n = 1
+    while ccattn.bwd_shared_bytes(*((n + 1, 2) if side == "h" else (2, n + 1))) \
+            <= ccattn.MAX_BWD_SHARED_BYTES:
+        n += 1
+    return n
+
+
+@pytest.mark.parametrize("case", ["g_dtype", "g_noncontiguous", "smem_limit",
+                                  "smem_limit_column", "cpu"])
 def test_bwd_kernel_wrapper_rejects_what_it_cannot_take(case):
+    """The backward's block holds a whole image column, and a row or a tile of
+    64 pixels of it against the whole row: a column of more than 137 pixels or
+    a row of more than 259 (the documented limits) needs more shared memory
+    than a block can have, whatever the channels."""
     q, k, v, g = (torch.from_numpy(a) for a in _inputs_bwd((1, 4, 6, 16)))
     expected = ValueError
     if case == "g_dtype":
         g, expected = g.bfloat16(), TypeError
     elif case == "g_noncontiguous":
         g = g.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
-    elif case == "smem_limit":
-        n = ccattn.MAX_BWD_SHARED_FLOATS // 2
-        q = torch.zeros(1, 1, n, 1)
-        k, v = q.clone(), torch.zeros(1, 1, n, 8)
+    elif case.startswith("smem_limit"):
+        longest_h, longest_w = _longest_bwd_side("h"), _longest_bwd_side("w")
+        assert (longest_h, longest_w) == (137, 259)
+        size = (1, 2, longest_w + 1) if case == "smem_limit" else (1, longest_h + 1, 2)
+        q = torch.zeros(*size, 1)
+        k, v = q.clone(), torch.zeros(*size, 8)
         g = v.clone()
     with pytest.raises(expected):
         ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
+
+
+def _three_pass_bwd(q, k, v, g):
+    """dq, dk, dv as the three passes of csrc/ccattn_bwd.cu compute them, in
+    torch on the CPU: the row branch's softmax partials (m_r, l_r, t_r); the
+    column branch's, with the guard for a column of one pixel, combined into
+    the final max m, 1/l and s, then the column contributions; then the row
+    branch from the final statistics, plus the column contributions."""
+    ein = torch.einsum
+    # pass 1: one image row at a time
+    e_r = ein("bhwc,bhjc->bhwj", q, k)
+    d_r = ein("bhwc,bhjc->bhwj", g, v)
+    m_r = e_r.amax(-1)
+    p_r = torch.exp(e_r - m_r[..., None])
+    l_r, t_r = p_r.sum(-1), (p_r * d_r).sum(-1)
+    # pass 2: one image column at a time, the query's own row masked
+    h = q.shape[1]
+    diag = torch.eye(h, dtype=torch.bool)[:, None, :]
+    e_c = ein("bhwc,bjwc->bhwj", q, k).masked_fill(diag, float("-inf"))
+    d_c = ein("bhwc,bjwc->bhwj", g, v)
+    m_c = e_c.amax(-1)
+    found = torch.isfinite(m_c)  # false only where H = 1
+    p_c = torch.exp(e_c - torch.where(found, m_c, torch.zeros_like(m_c))[..., None])
+    l_c, t_c = p_c.sum(-1), (p_c * d_c).sum(-1)
+    m = torch.maximum(m_r, m_c)
+    w_r = torch.exp(m_r - m)
+    w_c = torch.where(l_c > 0, torch.exp(m_c - m), torch.zeros_like(m))
+    inv_l = 1 / (l_r * w_r + l_c * w_c)
+    s = (t_r * w_r + t_c * w_c) * inv_l
+    a_c = torch.exp(e_c - m[..., None]) * inv_l[..., None]
+    de_c = a_c * (d_c - s[..., None])
+    dq_c = ein("bhwj,bjwc->bhwc", de_c, k)
+    dk_c = ein("bhwj,bhwc->bjwc", de_c, q)
+    dv_c = ein("bhwj,bhwc->bjwc", a_c, g)
+    # pass 3: the row branch from the final statistics, and the sum
+    a_r = torch.exp(e_r - m[..., None]) * inv_l[..., None]
+    de_r = a_r * (d_r - s[..., None])
+    return (ein("bhwj,bhjc->bhwc", de_r, k) + dq_c,
+            ein("bhwj,bhwc->bhjc", de_r, q) + dk_c,
+            ein("bhwj,bhwc->bhjc", a_r, g) + dv_c)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_three_pass_algebra_matches_jax_vjp(shape):
+    """The decomposition the CUDA backward runs, rehearsed where the kernel
+    cannot run; (1, 1, 5, 16) takes the guard of a fully masked column."""
+    q, k, v, g = _inputs_bwd(shape, seed=5)
+    _, vjp = jax.vjp(cc_attention_core_jnp, *(jnp.asarray(a) for a in (q, k, v)))
+    got = _three_pass_bwd(*(torch.from_numpy(a) for a in (q, k, v, g)))
+    _assert_grads_close([t.numpy() for t in got], vjp(jnp.asarray(g)))
 
 
 @pytest.mark.cuda
@@ -233,6 +298,60 @@ def test_function_matches_plain_backward_on_card(shape, dtype, rel):
         assert err <= rel * r.float().abs().max().item(), (name, err)
     again = torch.autograd.grad(ccattn.cc_attention_core(*leaves), leaves, g)
     assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: repeatable
+
+
+def _check_bwd_kernel_on_card(q, k, v, g, rel):
+    before = ccattn.BWD_KERNEL_LAUNCHES
+    got = ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
+    torch.cuda.synchronize()
+    assert ccattn.BWD_KERNEL_LAUNCHES == before + 1
+    ref = ccattn.cc_attention_core_bwd_plain(q, k, v, g)
+    for name, o, r in zip(("dq", "dk", "dv"), got, ref):
+        assert o.dtype == q.dtype and o.shape == r.shape and torch.isfinite(o).all(), name
+        err = (o.float() - r.float()).abs().max().item()
+        assert err <= rel * r.float().abs().max().item(), (name, err)
+    again = ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: repeatable
+
+
+# (B, H, W, C), Cq = C // 8: lines that are no multiple of the 2x2 and 4x4
+# register tiles, with n = 65 and 127 on the 4x4 side; rows of 127, 200 and
+# 259 pixels in row tiles, the last one short; the longest column (137) and
+# row (259) the kernel takes; channels that are no multiple of the 32-channel
+# slice (Cq = 25, 65 and 255, C = 200, 520 and 2040: Cq not a multiple of 4
+# takes the 4-byte copies); operands too wide to stage whole (C = 1024 and
+# 2040), which stream in slices, the first in row tiles; and the 64x128 map of
+# a 2048x4096 input
+BWD_TILING_SHAPES = [(2, 13, 37, 64), (1, 65, 9, 32), (1, 3, 127, 16), (2, 9, 11, 200),
+                     (1, 6, 10, 520), (1, 2, 200, 32), (1, 137, 3, 16), (1, 2, 259, 16),
+                     (1, 16, 20, 2040), (1, 3, 100, 1024), (1, 64, 128, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("shape", BWD_TILING_SHAPES)
+def test_bwd_kernel_matches_plain_at_tiling_edges_on_card(shape, dtype, rel):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    _check_bwd_kernel_on_card(
+        *(torch.from_numpy(a).cuda().to(dtype) for a in _inputs_bwd(shape, seed=6)), rel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_bwd_kernel_takes_unaligned_views_on_card(dtype, rel):
+    """Contiguous views one element into their storage: no 16-byte (float32)
+    or 8-byte (bfloat16) vector copy lines up, so every slice goes by 4-byte
+    cp.async or 2-byte loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    views = []
+    for a in _inputs_bwd((2, 7, 11, 256), seed=7):
+        flat = torch.zeros(a.size + 1, dtype=dtype, device="cuda")
+        flat[1:] = torch.from_numpy(a).cuda().to(dtype).flatten()
+        views.append(flat[1:].view(a.shape))
+    assert all(t.is_contiguous() and t.data_ptr() % 8 != 0 for t in views)
+    _check_bwd_kernel_on_card(*views, rel)
 
 
 @pytest.mark.cuda

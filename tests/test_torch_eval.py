@@ -17,6 +17,8 @@ import http.client
 import io
 import json
 import logging
+import re
+import shutil
 import threading
 
 import numpy as np
@@ -264,6 +266,33 @@ def test_what_waits_raises(workdir, monkeypatch):
     args.opts = [o for o in args.opts if o not in ("MODEL.DEVICE", "cpu")]
     with pytest.raises(RuntimeError, match="is_available"):
         test_cli.test(load_cfg(args), RENDER, args)
+
+
+def test_empty_resume_loads_the_newest_checkpoint_in_output_dir(workdir, tmp_path):
+    """An empty ``resume`` takes the newest ``{Prefix}-N.pth`` in OUTPUT_DIR,
+    like ``resume latest``, as the JAX ``Tester`` does: ``cli.test -cfg X``
+    and ``cli.serve -cfg X`` after a training run."""
+    log = logging.getLogger("torch_eval")
+    cfg = load_cfg(_port_args(workdir, tmp_path, "resume", ""))
+    assert cfg.resume == ""
+    older = Tester(cfg, log)
+    randomize_weights_(older.segmentor, seed=12)
+    save_reference_checkpoint(older.spec.modules, str(tmp_path / "Attn-2.pth"))
+    shutil.copy(workdir / "Attn-seeded.pth", tmp_path / "Attn-10.pth")  # newest by number
+    tester = Tester(cfg, log)
+    tester._load_checkpoint()
+    seeded = Tester(load_cfg(_port_args(workdir, tmp_path)), log)
+    seeded._load_checkpoint()
+    want = seeded.segmentor.state_dict()
+    for name, value in tester.segmentor.state_dict().items():
+        assert torch.equal(value, want[name]), name
+
+
+def test_empty_resume_without_a_checkpoint_raises(workdir, tmp_path):
+    cfg = load_cfg(_port_args(workdir, tmp_path, "resume", ""))
+    tester = Tester(cfg, logging.getLogger("torch_eval"))
+    with pytest.raises(FileNotFoundError, match=rf"Attn-N\.pth .*{re.escape(str(tmp_path))}"):
+        tester._load_checkpoint()
 
 
 # -- serving the attn family ---------------------------------------------------------

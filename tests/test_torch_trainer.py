@@ -157,6 +157,7 @@ def test_prune_checkpoints(tmp_path):
     ("DATA_PIPE.WORKER_PROCESSES", "2"),
     ("DATA_PIPE.NATIVE_DECODE", "True"),
     ("SOLVER.REMAT", "full"),
+    ("MODEL.REMAT_BLOCKS", "True"),
     ("DEBUG.CHECKIFY", "True"),
     ("DATASETS.SOURCE_TRAIN", "gta5_train"),
     ("MODEL.NAME", "deeplab_resnet101"),
