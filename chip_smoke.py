@@ -10,10 +10,14 @@ no result line on any failure.  Phases, each of which raises:
   2. build    every CUDA source of the port, one nvcc each, all started at once;
   3. kernels  each kernel against its plain PyTorch version on the card, in
               float32 and bfloat16, at the shapes the main paths give it and
-              more (the criss-cross backward also against autograd of the
-              plain forward, and two of its calls for equal bits; the fused
-              MBConv also against the unfused module path), and its time
-              beside its bound and the plain version's
+              more (the criss-cross forward and backward also two of their
+              calls for equal bits, with each pass's resources and device
+              time; the forward also beside a masked
+              scaled_dot_product_attention over the H*W pixels, its library
+              yardstick, and with its channels split into other numbers of
+              groups; the backward also against autograd of the plain
+              forward; the fused MBConv also against the unfused module
+              path), and its time beside its bound and the plain version's
               (the fused MBConv also beside a tensor-core bound, after a
               report of its instances: ptxas registers and spills, shared
               memory, blocks per SM, HMMA instructions);
@@ -302,31 +306,102 @@ def phase_kernels_bwd() -> dict:
     return result
 
 
+def fwd_pass_us(q, k, v, calls: int = 10) -> list:
+    """Median device time of each of the forward's two kernel launches (rows;
+    columns and the sum) over the last ``calls`` of ``calls + 5`` calls, from
+    torch.profiler's CUDA activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls + 5):
+            ccattn.cc_attention_core_cuda(q, k, v)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if "cc_attention_fwd_kernel" in e.name),
+                    key=lambda e: e.time_range.start)[-2 * calls:]
+    if len(events) != 2 * calls:
+        raise AssertionError(f"profiled {len(events)} forward launches, want {2 * calls}")
+    return [float(np.median([e.device_time for e in events[i::2]])) for i in range(2)]
+
+
+def cc_sdpa(q, k, v, mask):
+    """The yardstick: the same function as one masked
+    ``scaled_dot_product_attention`` over the H*W pixels of an image, dense in
+    (H*W)^2; the port never calls it."""
+    b, h, w, cq = q.shape
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.view(b, 1, h * w, cq), k.view(b, 1, h * w, cq), v.view(b, 1, h * w, -1),
+        attn_mask=mask, scale=1.0)
+    return out.view(v.shape)
+
+
+def cc_mask(h: int, w: int) -> torch.Tensor:
+    """[H*W, H*W] boolean: pixel p sees p' in its row (itself included) and in
+    its column: the W row keys and the H-1 column keys, each once."""
+    rows = torch.arange(h, device="cuda").repeat_interleave(w)
+    cols = torch.arange(w, device="cuda").repeat(h)
+    return (rows[:, None] == rows[None, :]) | (cols[:, None] == cols[None, :])
+
+
+def _within(out, ref, dtype):
+    atol, rtol = TOLERANCE[dtype]
+    diff = (out.float() - ref.float()).abs()
+    ok = bool((diff <= atol + rtol * ref.float().abs()).all()) and out.dtype == dtype
+    return diff.max().item(), ok
+
+
 def phase_kernels() -> dict:
+    """Kernel #1 against its plain version at every shape of CC_SHAPES, in
+    float32 and bfloat16, with its time beside its bound, the plain version's
+    and the masked-SDPA yardstick's (checked against the plain version
+    first); two calls at the training shape must give the same bits.  First,
+    what the runtime says of each pass at the training shape and at 64x128."""
+    for shape in (TRAIN_CC_SHAPE, CC_SHAPES[-1]):
+        for i, name in enumerate(ccattn.FWD_PASSES):
+            log(f"[kernel] cc_attention_fwd {shape} float32, pass {i + 1} ({name}): "
+                f"{ccattn.fwd_pass_info(shape, torch.float32, i)}")
     result = {}
     for shape in CC_SHAPES:
+        mask = cc_mask(*shape[1:3])
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = cc_inputs(shape, dtype)
             out = ccattn.cc_attention_core(q, k, v)
             torch.cuda.synchronize()
             ref = ccattn.cc_attention_core_plain(q, k, v)
+            err, ok = _within(out, ref, dtype)
             atol, rtol = TOLERANCE[dtype]
-            diff = (out.float() - ref.float()).abs()
-            err = diff.max().item()
-            ok = bool((diff <= atol + rtol * ref.float().abs()).all()) and out.dtype == dtype
             log(f"[kernel] cc_attention_fwd {shape} {str(dtype)[6:]}: max abs err "
                 f"{err:.3e} (tolerance {atol:g} + {rtol:g}*|plain|) {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"cc_attention_fwd disagrees with its plain version "
                                      f"at {shape} {dtype}: {err}")
+            if shape == TRAIN_CC_SHAPE:
+                same = torch.equal(out, ccattn.cc_attention_core_cuda(q, k, v))
+                log(f"[kernel] cc_attention_fwd {shape} {str(dtype)[6:]}: two calls "
+                    f"give {'the same bits' if same else 'DIFFERENT BITS'}")
+                if not same:
+                    raise AssertionError(f"cc_attention_fwd is not repeatable at {shape} "
+                                         f"{dtype}")
+            sdpa_err, sdpa_ok = _within(cc_sdpa(q, k, v, mask), ref, dtype)
+            log(f"[kernel]   masked SDPA yardstick: max abs err {sdpa_err:.3e} against the "
+                f"plain version {'ok' if sdpa_ok else 'FAIL'}")
+            if not sdpa_ok:
+                raise AssertionError(f"masked SDPA disagrees with the plain version at "
+                                     f"{shape} {dtype}: {sdpa_err}")
             ms = graph_ms(lambda: ccattn.cc_attention_core(q, k, v))
             plain_ms = graph_ms(lambda: ccattn.cc_attention_core_plain(q, k, v))
+            library_ms = graph_ms(lambda: cc_sdpa(q, k, v, mask))
             bound_ms, bound_by = cc_bound(shape, dtype)
             log(f"[kernel]   {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
-                f"({bound_by}), plain version {plain_ms * 1e3:.2f} us")
+                f"({bound_by}), plain version {plain_ms * 1e3:.2f} us, masked SDPA "
+                f"{library_ms * 1e3:.2f} us")
+            if dtype == torch.float32:
+                passes = fwd_pass_us(q, k, v)
+                log(f"[kernel]   by pass (torch.profiler, device us): " + ", ".join(
+                    f"{name} {us:.2f}" for name, us in zip(ccattn.FWD_PASSES, passes)))
             if shape in (MAIN_CC_SHAPE, TRAIN_CC_SHAPE) and dtype == torch.float32:
                 result[shape] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound_ms, "bound_by": bound_by}
+                                 "bound_ms": bound_ms, "bound_by": bound_by,
+                                 "library_ms": library_ms}
     return result
 
 
@@ -1006,7 +1081,8 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
         "launches": serve_launches + train_fwd_launches,
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
-        **fwd[MAIN_CC_SHAPE], "library_ms": None,
+        **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
+                                          "over H*W pixels with the criss-cross mask",
         "shape": list(MAIN_CC_SHAPE),
         "at_train_shape": {**fwd[TRAIN_CC_SHAPE], "shape": list(TRAIN_CC_SHAPE)},
     }, {

@@ -16,6 +16,10 @@ JAX oracle, against the Pallas backward kernel in interpret mode and against
 ``torch.autograd.grad`` of the plain forward.  Gradients here reach magnitudes
 of 5 to 50 (sums over H+W keys and up to 64 channels of O(1) products), so the
 float32 tolerance is 1e-5 of the reference's largest magnitude plus rtol 1e-5.
+
+The two passes of the CUDA forward (row partials, then the column branch
+combined with them) and the three of the CUDA backward are re-stated in torch
+and held against the JAX package here, where the kernels cannot run.
 """
 
 import types
@@ -92,7 +96,7 @@ def test_cpu_tensors_take_the_plain_version_uncounted():
                                   "smem_limit", "cpu"])
 def test_kernel_wrapper_rejects_what_it_cannot_take(case):
     q, k, v = (torch.from_numpy(a) for a in _inputs((1, 4, 6, 16)))
-    expected = ValueError
+    expected, match = ValueError, None
     if case == "float64":
         q, k, v = q.double(), k.double(), v.double()
         expected = TypeError
@@ -101,16 +105,109 @@ def test_kernel_wrapper_rejects_what_it_cannot_take(case):
     elif case == "shapes":
         k = k[:, :3].contiguous()
     elif case == "smem_limit":
-        q = torch.zeros(1, 1, ccattn.MAX_H_PLUS_W_PLUS_CQ, 1)
-        k, v = q.clone(), torch.zeros(1, 1, ccattn.MAX_H_PLUS_W_PLUS_CQ, 8)
-    with pytest.raises(expected):
+        # the forward streams its keys, so no line length or channel count
+        # bounds its shared memory: what it keeps is the pixel limit of its
+        # grid and indices (meta tensors: the shape alone is checked, and the
+        # message tells this limit from the device check that follows it)
+        q = torch.empty(1, 2 ** 16, 2 ** 15, 1, device="meta")
+        k, v = q.clone(), torch.empty(1, 2 ** 16, 2 ** 15, 8, device="meta")
+        match = r"B\*H\*W = 2147483648 exceeds"
+    with pytest.raises(expected, match=match):
         ccattn.cc_attention_core_cuda(q, k, v)
 
 
+def _two_pass_fwd(q, k, v, key_tile):
+    """The output as the two passes of csrc/ccattn_fwd.cu compute it, in torch
+    on the CPU: the row pass online over key tiles of ``key_tile`` pixels,
+    into the row partials (m_r, l_r) and the unnormalised row output O_r;
+    then the column pass online over key tiles, the query's own row masked
+    (with the guard for a column of one pixel), combined with the row
+    partials into the output."""
+    ein = torch.einsum
+    b, h, w, _ = q.shape
+
+    def online(keys, energies, values, n):
+        m = torch.full((b, h, w), float("-inf"))
+        l = torch.zeros((b, h, w))
+        o = torch.zeros(v.shape)
+        for j0 in range(0, n, key_tile):
+            e = energies(j0, min(j0 + key_tile, n))
+            m_new = torch.maximum(m, e.amax(-1))
+            found = torch.isfinite(m_new)  # false only in a column of one pixel
+            alpha = torch.where(found, torch.exp(m - m_new), torch.ones_like(m))
+            p = torch.where(found[..., None], torch.exp(e - m_new[..., None]),
+                            torch.zeros_like(e))
+            l = l * alpha + p.sum(-1)
+            o = o * alpha[..., None] + values(p, j0, min(j0 + key_tile, n))
+            m = m_new
+        return m, l, o
+
+    # pass 1: one image row at a time
+    m_r, l_r, o_r = online(
+        k, lambda j0, j1: ein("bhwc,bhjc->bhwj", q, k[:, :, j0:j1]),
+        lambda p, j0, j1: ein("bhwj,bhjc->bhwc", p, v[:, :, j0:j1]), w)
+
+    # pass 2: one image column at a time, the query's own row masked
+    def col_energies(j0, j1):
+        e = ein("bhwc,bjwc->bhwj", q, k[:, j0:j1])
+        own = torch.arange(h)[:, None] == torch.arange(j0, j1)[None, :]
+        return e.masked_fill(own[:, None, :], float("-inf"))
+
+    m_c, l_c, o_c = online(
+        k, col_energies, lambda p, j0, j1: ein("bhwj,bjwc->bhwc", p, v[:, j0:j1]), h)
+    m = torch.maximum(m_r, m_c)  # finite: the row branch is never masked
+    a_r = torch.exp(m_r - m)
+    a_c = torch.where(l_c > 0, torch.exp(m_c - m), torch.zeros_like(m))
+    return ((a_r[..., None] * o_r + a_c[..., None] * o_c)
+            / (a_r * l_r + a_c * l_c)[..., None])
+
+
+@pytest.mark.parametrize("oracle", ["jnp", "pallas_interpret"])
+@pytest.mark.parametrize("key_tile", [3, None])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_two_pass_algebra_matches_jax(shape, key_tile, oracle):
+    """The decomposition the CUDA forward runs, rehearsed where the kernel
+    cannot run: key tiles of 3 pixels take the online rescaling across
+    tiles, None a whole line in one tile; (1, 1, 5, 16) takes the guard of
+    a fully masked column."""
+    arrays = _inputs(shape, seed=8)
+    if oracle == "jnp":
+        ref = cc_attention_core_jnp(*(jnp.asarray(a) for a in arrays))
+    else:
+        ref = cc_attention_core_pallas(*(jnp.asarray(a) for a in arrays), interpret=True)
+    got = _two_pass_fwd(*(torch.from_numpy(a) for a in arrays),
+                        key_tile=key_tile or max(shape[1], shape[2]))
+    assert got.shape == shape and torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5, rtol=1e-5)
+
+
+def _check_kernel_on_card(q, k, v, atol, rtol):
+    before = ccattn.KERNEL_LAUNCHES
+    out = ccattn.cc_attention_core_cuda(q, k, v)
+    torch.cuda.synchronize()
+    assert ccattn.KERNEL_LAUNCHES == before + 1
+    assert out.dtype == q.dtype and out.shape == v.shape and torch.isfinite(out).all()
+    ref = ccattn.cc_attention_core_plain(q, k, v)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    return out
+
+
+# (B, H, W, C), Cq = C // 8, beyond SHAPES and the serving and 64x128 maps: a
+# row of 130 (three key tiles of 44 and five query tiles of 26) and a column
+# of 70 (two key tiles, three query tiles); the long row and the long column
+# that the previous kernel's shared-memory limit took; channels that are no
+# multiple of 4 (Cq = 25: 4-byte copies), more than one channel group
+# (C = 520, 2040) and Cq over one 32-channel slice (Cq = 65, 255)
+FWD_TILING_SHAPES = [(1, 5, 130, 64), (2, 70, 6, 32), (1, 2, 1000, 64), (1, 600, 3, 64),
+                     (2, 9, 11, 200), (1, 6, 10, 520), (1, 16, 20, 2040)]
+
+ON_CARD_TOLERANCE = [(torch.float32, 1e-4, 1e-4), (torch.bfloat16, 3e-2, 1e-2)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-4),
-                                             (torch.bfloat16, 3e-2, 1e-2)])
-@pytest.mark.parametrize("shape", SHAPES + [(8, 16, 32, 256), (1, 64, 128, 256)])
+@pytest.mark.parametrize("dtype,atol,rtol", ON_CARD_TOLERANCE)
+@pytest.mark.parametrize("shape", SHAPES + [(8, 16, 32, 256), (1, 64, 128, 256)]
+                         + FWD_TILING_SHAPES)
 def test_kernel_matches_plain_on_card(shape, dtype, atol, rtol):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
@@ -121,6 +218,35 @@ def test_kernel_matches_plain_on_card(shape, dtype, atol, rtol):
     assert ccattn.KERNEL_LAUNCHES == before + 1 and out.dtype == dtype
     ref = ccattn.cc_attention_core_plain(q, k, v)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", ON_CARD_TOLERANCE)
+def test_kernel_takes_unaligned_views_on_card(dtype, atol, rtol):
+    """Contiguous views one element into their storage: no 16-byte (float32)
+    or 8-byte (bfloat16) vector copy lines up, so every line goes by 4-byte
+    cp.async or 2-byte loads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    views = []
+    for a in _inputs((2, 7, 11, 256), seed=7):
+        flat = torch.zeros(a.size + 1, dtype=dtype, device="cuda")
+        flat[1:] = torch.from_numpy(a).cuda().to(dtype).flatten()
+        views.append(flat[1:].view(a.shape))
+    assert all(t.is_contiguous() and t.data_ptr() % 8 != 0 for t in views)
+    _check_kernel_on_card(*views, atol, rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol,rtol", ON_CARD_TOLERANCE)
+@pytest.mark.parametrize("shape", [(6, 22, 40, 256), (1, 5, 130, 64)])
+def test_kernel_gives_equal_bits_twice_on_card(shape, dtype, atol, rtol):
+    """One writer per output pixel, sums in a fixed order, no atomics."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype) for a in _inputs(shape, seed=9))
+    out = _check_kernel_on_card(q, k, v, atol, rtol)
+    assert torch.equal(out, ccattn.cc_attention_core_cuda(q, k, v))
 
 
 # ---------------------------------------------------------------- backward
