@@ -42,13 +42,32 @@ no result line on any failure.  Phases, each of which raises:
   7. serve_attn  the attn serving path: the same model behind the HTTP server
               with the switch on, 16 PNG requests from 8 threads, launches
               counted over exactly that traffic, one batch of masks checked
-              against the unfused forward.
+              against the unfused forward;
+  8. train_deeplab  the DeepLab main path: DeepLabV2-ResNet101 + ASPP
+              (configs/deeplabv2_r101_src.yaml: output stride 8, FrozenBN, 19
+              classes, full width and depth, seeded weights) through the
+              source-training CLI's parser and ``Trainer`` at 1280x720, batch
+              6, SGD with the classifier at 10x LR, poly LR, float32, TF32
+              off, on the synthetic dataset, for 6 steps; the loss must be
+              finite, every parameter of both parts move, every FrozenBN
+              buffer stay bit-equal, the checkpoint load into ``Tester``; a
+              step split into forward, backward and optimizer;
+  9. eval_deeplab  that checkpoint through the test CLI's parser and
+              ``Tester.test()`` on 32 synthetic images at 1024x512, batch 1;
+              one image with flip and one with multi-scale test-time
+              augmentation; and a seeded ResNet18 DeepLab at 64x64 on the card
+              against the same forward on the CPU;
+ 10. serve_deeplab  the same model behind the HTTP server, 16 PNG requests of
+              1024x512 from 8 threads, one batch of masks checked against the
+              same forward outside the server.
+No hand kernel lies on the DeepLab path: its phases check that none of the
+three launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
 phases (kernels, kernels_bwd, kernels_mbconv, serve, train, eval_attn,
-serve_attn; device and build always run) and prints no result lines: an aid
-while working on one path.
+serve_attn, train_deeplab, eval_deeplab, serve_deeplab; device and build
+always run) and prints no result lines: an aid while working on one path.
 """
 
 from __future__ import annotations
@@ -82,6 +101,7 @@ from rnd_semantic_segmentation_torch.models.build import build_segmentor, random
 from rnd_semantic_segmentation_torch.models.efficientnet import MBConvBlock, block_list
 from rnd_semantic_segmentation_torch.ops import ccattn, mbconv, native
 from rnd_semantic_segmentation_torch.serve.server import make_server
+from rnd_semantic_segmentation_torch.train.segmentor import Segmentor
 from rnd_semantic_segmentation_torch.utils import load_json, resolve_device
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -132,6 +152,16 @@ MAIN_MBCONV_SHAPE = (ATTN_BATCH, 24, 128, 128, 3)   # blocks 3 and 4: most bytes
 # fused and unfused eval of the same weights: the share of pixels whose argmax
 # may differ (ties at float32 precision between two sigmoid outputs)
 MAX_TIE_SHARE = 1e-3
+# the DeepLab paths: configs/deeplabv2_r101_src.yaml, as (MODEL.NAME,
+# NUM_CLASSES, FREEZE_BN, SOLVER.BATCH_SIZE, SOURCE_INPUT_SIZE_TRAIN,
+# INPUT_SIZE_TEST, TEST.BATCH_SIZE); 32 synthetic images evaluated
+DEEPLAB_GEOMETRY = ("deeplab_resnet101", 19, True, TRAIN_BATCH, (TRAIN_W, TRAIN_H),
+                    (SERVE_W, SERVE_H), 1)
+DEEPLAB_EVAL_IMAGES = 32
+# the card against the CPU: a seeded deeplab_resnet18 at 64x64, logits within
+# this share of their largest magnitude (float32 sums in other orders through
+# 20 convolutions; cuDNN without TF32)
+DEEPLAB_CPU_TOLERANCE = 1e-4
 
 
 def log(msg: str) -> None:
@@ -726,7 +756,8 @@ def serve_traffic(tag: str, cfg, args, render, w: int, h: int, card: str, counte
 
         lat = np.array([r[2] for r in results]) * 1e3
         log(f"[{tag}] on {card}: request latency p50 {np.percentile(lat, 50):.1f} ms, "
-            f"p99 {np.percentile(lat, 99):.1f} ms, {N_REQUESTS / wall:.2f} images/s "
+            f"p90 {np.percentile(lat, 90):.1f} ms (of {N_REQUESTS}: the highest percentile "
+            f"with a sample above it), max {lat.max():.1f} ms, {N_REQUESTS / wall:.2f} images/s "
             f"(PNG decode to mask PNG, {N_THREADS} clients, max batch {MAX_BATCH})")
     finally:
         httpd.shutdown()
@@ -937,6 +968,41 @@ def _worst_leaf(grads, refs):
     return worst, worst_name
 
 
+def _report_steps(tag: str, trainer, card: str, peak_mib: float) -> float:
+    """Logs ms a step (the median after the first, which warms cuDNN up),
+    images/s, the data share and the peak memory; returns the ms a step."""
+    times = trainer.meters.meters["time"].series[1:]
+    waits = trainer.meters.meters["data"].series[1:]
+    step_ms = float(np.median(times)) * 1e3
+    log(f"[{tag}] on {card}: {step_ms:.1f} ms/step (median of steps 2..{trainer.state.step}; "
+        f"first step {trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
+        f"{TRAIN_BATCH / step_ms * 1e3:.2f} images/s, data share of a step "
+        f"{sum(waits) / sum(times):.1%}, peak memory {peak_mib:.0f} MiB, float32, TF32 off")
+    return step_ms
+
+
+def _check_checkpoint_loads(tag: str, trainer, opts, logger, x: torch.Tensor) -> None:
+    """The checkpoint the trainer wrote loads back into ``Tester`` through
+    ``resume latest``: the same weights and buffers, finite probabilities
+    at 1024x512 from the first image of ``x``."""
+    ckpt = os.path.join(trainer.cfg.OUTPUT_DIR, f"{trainer.spec.ckpt_prefix}-1.pth")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"{ckpt} was not written")
+    tester = Tester(load_cfg(train_src.build_parser().parse_args(opts + ["resume", "latest"])),
+                    logger)
+    tester._load_checkpoint()
+    trained = trainer.segmentor.state_dict()
+    for name, value in tester.segmentor.state_dict().items():
+        if not torch.equal(value, trained[name]):
+            raise AssertionError(f"{name} differs between the trainer and {ckpt}")
+    probs = tester._probs_impl(x[:1, :, :SERVE_H, :SERVE_W].contiguous(), (SERVE_H, SERVE_W))
+    if (probs.shape != (1, 19, SERVE_H, SERVE_W) or not torch.isfinite(probs).all()
+            or (probs.sum(1) - 1).abs().max() > 1e-4):
+        raise AssertionError(f"Tester on {ckpt}: probabilities {tuple(probs.shape)}")
+    log(f"[{tag}] {ckpt} ({os.path.getsize(ckpt) / 2 ** 20:.0f} MiB) loads into Tester; "
+        f"its weights and buffers equal the trainer's")
+
+
 def phase_train(tmp: str, card: str):
     from rnd_semantic_segmentation_torch.train.steps import make_family_loss
 
@@ -997,20 +1063,15 @@ def phase_train(tmp: str, card: str):
         if not (grad > 0 and moved > 0 and np.isfinite(grad)):
             raise AssertionError(f"long_relation.{name} got no gradient or did not move")
 
-    times = trainer.meters.meters["time"].series[1:]   # the first step warms cuDNN up
-    waits = trainer.meters.meters["data"].series[1:]
-    step_ms = float(np.median(times)) * 1e3
-    log(f"[train] on {card}: {step_ms:.1f} ms/step (median of steps 2..{steps}; first "
-        f"step {trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
-        f"{TRAIN_BATCH / step_ms * 1e3:.2f} images/s, data share of a step "
-        f"{sum(waits) / sum(times):.1%}, peak memory {peak_mib:.0f} MiB, float32, TF32 off")
-
-    # one step's gradients: the kernels against the same step with the plain core
+    _report_steps("train", trainer, card, peak_mib)
     loader = trainer.train_loader
     loader.set_epoch(1)
     sample = next(iter(loader))
     x = torch.from_numpy(sample["image"]).to(trainer.device).permute(0, 3, 1, 2).contiguous()
     label = torch.from_numpy(sample["label"]).to(trainer.device)
+    _check_checkpoint_loads("train", trainer, opts, logger, x)
+
+    # one step's gradients: the kernels against the same step with the plain core
     loss_fn = make_family_loss(trainer.spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
     loss_k, grads_k = _one_step_grads(segmentor, loss_fn, x, label)
     with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
@@ -1028,24 +1089,296 @@ def phase_train(tmp: str, card: str):
     if worst > GRAD_TOLERANCE or abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
         raise AssertionError(f"gradients disagree with the plain-core step: {worst_name} "
                              f"{worst}")
-
-    # the checkpoint the trainer wrote loads back into Tester through `resume latest`
-    ckpt = os.path.join(out_dir, "Gald-1.pth")
-    if not os.path.exists(ckpt):
-        raise AssertionError(f"{ckpt} was not written")
-    test_cfg = load_cfg(train_src.build_parser().parse_args(opts + ["resume", "latest"]))
-    tester = Tester(test_cfg, logger)
-    tester._load_checkpoint()
-    trained = dict(segmentor.named_parameters())
-    for name, p in tester.segmentor.named_parameters():
-        if not torch.equal(p, trained[name]):
-            raise AssertionError(f"{name} differs between the trainer and {ckpt}")
-    probs = tester._probs_impl(x[:1, :, :SERVE_H, :SERVE_W].contiguous(), (SERVE_H, SERVE_W))
-    if probs.shape != (1, 19, SERVE_H, SERVE_W) or not torch.isfinite(probs).all():
-        raise AssertionError(f"Tester on {ckpt}: probabilities {tuple(probs.shape)}")
-    log(f"[train] {ckpt} ({os.path.getsize(ckpt) / 2 ** 20:.0f} MiB) loads into Tester; "
-        f"parameters equal the trainer's")
     return fwd_launches, bwd_launches
+
+
+KERNEL_COUNTERS = ((ccattn, "KERNEL_LAUNCHES"), (ccattn, "BWD_KERNEL_LAUNCHES"),
+                   (mbconv, "KERNEL_LAUNCHES"))
+
+
+def _zero_kernel_counts() -> None:
+    for module, name in KERNEL_COUNTERS:
+        setattr(module, name, 0)
+
+
+def _check_no_kernel(tag: str) -> int:
+    """No hand kernel lies on the DeepLab path: the three counts, set to 0
+    before the phase's run, must still be 0."""
+    counts = {f"{m.__name__.rsplit('.', 1)[1]}.{n}": getattr(m, n) for m, n in KERNEL_COUNTERS}
+    log(f"[{tag}] hand-kernel launches in this run: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"a hand kernel ran on the DeepLab path: {counts}")
+    return 0
+
+
+def _deeplab_opts(out_dir: str, *more):
+    return ["-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_src.yaml"),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train", "DATASETS.TEST", "synthetic_val",
+            "OUTPUT_DIR", out_dir, *more]
+
+
+def _check_deeplab_geometry(cfg) -> None:
+    geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, bool(cfg.MODEL.FREEZE_BN),
+                cfg.SOLVER.BATCH_SIZE, tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN),
+                tuple(cfg.INPUT.INPUT_SIZE_TEST), cfg.TEST.BATCH_SIZE)
+    if geometry != DEEPLAB_GEOMETRY:
+        raise AssertionError(f"configs/deeplabv2_r101_src.yaml gives {geometry}, "
+                             f"want {DEEPLAB_GEOMETRY}")
+
+
+def _deeplab_checkpoint(tmp: str) -> str:
+    """The checkpoint train_deeplab wrote, or (when that phase did not run)
+    seeded full-width weights at the same path."""
+    pth = os.path.join(tmp, "train_deeplab", "Aspp-1.pth")
+    if not os.path.exists(pth):
+        os.makedirs(os.path.dirname(pth), exist_ok=True)
+        cfg = load_cfg(train_src.build_parser().parse_args(_deeplab_opts(tmp)))
+        _seeded_checkpoint("deeplab", cfg, pth)
+    return pth
+
+
+def _counted_flops(fn) -> int:
+    """The floating-point operations of ``fn()`` as torch.utils.flop_counter
+    counts them from the shapes of its convolutions and products (2 per
+    multiply-add): the work the function must do, whatever the device."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    counter = FlopCounterMode(display=False)
+    with counter:
+        fn()
+    return counter.get_total_flops()
+
+
+def _step_split(trainer, x, label, reps: int = 3) -> dict:
+    """Host-clock ms of a train step's forward (with the loss), backward and
+    optimizer updates, each ended by a device sync: medians of ``reps`` steps
+    at the trainer's last LR; and the counted operations of the forward and
+    of the backward."""
+    from rnd_semantic_segmentation_torch.train.state import apply_updates
+    from rnd_semantic_segmentation_torch.train.steps import make_family_loss
+
+    cfg, spec, segmentor = trainer.cfg, trainer.spec, trainer.segmentor
+    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    size = tuple(label.shape[1:3])
+    held = []
+    flops = {"forward": _counted_flops(lambda: held.append(
+        loss_fn(segmentor(x, label_size=size, train=True)[0], label)))}
+    flops["backward"] = _counted_flops(lambda: held.pop().backward())
+    lr = trainer.lr_data[-1]
+    parts = {"forward": [], "backward": [], "optimizer": []}
+    for _ in range(reps):
+        for opt in trainer.state.optimizers.values():
+            opt.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outputs, _ = segmentor(x, label_size=size, train=True)
+        loss = loss_fn(outputs, label)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        for name, opt in trainer.state.optimizers.items():
+            apply_updates(opt, lr * spec.lr_mults[name])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for key, t in zip(parts, (t1 - t0, t2 - t1, t3 - t2)):
+            parts[key].append(t * 1e3)
+    return {key: float(np.median(v)) for key, v in parts.items()}, flops
+
+
+def phase_train_deeplab(tmp: str, card: str) -> int:
+    from rnd_semantic_segmentation_torch.models.layers import FrozenBatchNorm2d
+
+    out_dir = os.path.join(tmp, "train_deeplab")
+    opts = _deeplab_opts(out_dir, "DATASETS.SYNTHETIC_LENGTH", str(TRAIN_BATCH * TRAIN_STEPS),
+                         "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1")
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    _check_deeplab_geometry(cfg)
+    logger = _stderr_logger("chip_smoke.train_deeplab", logging.INFO)
+    trainer = train_src.make_trainer("deeplab", cfg, logger=logger)
+    segmentor = trainer.segmentor
+    randomize_weights_(segmentor, seed=0)
+    parts = trainer.spec.modules
+    before = {name: {n: p.detach().clone() for n, p in m.named_parameters()}
+              for name, m in parts.items()}
+    norms = [m for m in segmentor.modules() if isinstance(m, FrozenBatchNorm2d)]
+    buffers = dict(segmentor.named_buffers())
+    if len(norms) != 104 or len(buffers) != 4 * len(norms):
+        raise AssertionError(f"{len(norms)} FrozenBN modules, {len(buffers)} buffers; "
+                             f"want 104 and 416 (ResNet101, FREEZE_BN)")
+    frozen = {n: b.clone() for n, b in buffers.items()}
+    log(f"[train_deeplab] {cfg.MODEL.NAME}: "
+        f"{sum(p.numel() for p in segmentor.parameters())} parameters, "
+        f"{len(norms)} FrozenBN modules, seeded weights")
+    with torch.inference_mode():  # the seeded logits' scale on the card
+        probe = torch.randn(1, 3, TRAIN_H, TRAIN_W, device=trainer.device,
+                            generator=torch.Generator(trainer.device).manual_seed(0))
+        (logits,), features = segmentor(probe)
+    log(f"[train_deeplab] seeded forward at {TRAIN_W}x{TRAIN_H}: features "
+        f"{tuple(features.shape)}, logits {tuple(logits.shape)}, max |logit| "
+        f"{logits.abs().max().item():.3f}, logit std {logits.std().item():.3f}")
+    del probe, logits, features
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = _check_no_kernel("train_deeplab")
+
+    steps = trainer.state.step
+    if steps != TRAIN_STEPS or len(trainer.loss_data) != TRAIN_STEPS:
+        raise AssertionError(f"{steps} steps taken, want {TRAIN_STEPS}")
+    if not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"losses {trainer.loss_data}")
+    lrs = {n: o.param_groups[0]["lr"] for n, o in trainer.state.optimizers.items()}
+    log(f"[train_deeplab] {steps} steps of batch {TRAIN_BATCH} at {TRAIN_W}x{TRAIN_H}: "
+        f"losses {[round(v, 4) for v in trainer.loss_data]}, lr {trainer.lr_data[0]:.3g} "
+        f"-> {trainer.lr_data[-1]:.3g}; last LR by part {lrs}")
+    if abs(lrs["classifier"] - 10 * lrs["feature_extractor"]) > 1e-9 * lrs["classifier"]:
+        raise AssertionError(f"the classifier's LR is not 10x the backbone's: {lrs}")
+    for name, module in parts.items():
+        moved = [(p.detach() - before[name][n]).abs().max().item()
+                 for n, p in module.named_parameters()]
+        log(f"[train_deeplab]   {name}: {sum(m > 0 for m in moved)} of {len(moved)} "
+            f"parameters moved, by at most {max(moved):.3e}")
+        if not all(m > 0 and np.isfinite(m) for m in moved):
+            raise AssertionError(f"a parameter of {name} did not move")
+    changed = [n for n, b in segmentor.named_buffers() if not torch.equal(b, frozen[n])]
+    log(f"[train_deeplab]   FrozenBN buffers bit-equal after {steps} steps: "
+        f"{len(frozen) - len(changed)} of {len(frozen)}")
+    if changed:
+        raise AssertionError(f"FrozenBN buffers changed: {changed[:5]}")
+
+    step_ms = _report_steps("train_deeplab", trainer, card, peak_mib)
+
+    loader = trainer.train_loader
+    loader.set_epoch(1)
+    sample = next(iter(loader))
+    x = torch.from_numpy(sample["image"]).to(trainer.device).permute(0, 3, 1, 2).contiguous()
+    label = torch.from_numpy(sample["label"]).to(trainer.device)
+    _check_checkpoint_loads("train_deeplab", trainer, opts, logger, x)
+
+    split, flops = _step_split(trainer, x, label)
+    peak = PEAK_FLOP_PER_S[torch.float32]
+    bound_ms = (flops["forward"] + flops["backward"]) / peak * 1e3
+    log(f"[train_deeplab] a step on {card} (host clock, a device sync after each part, "
+        f"median of 3): forward and loss {split['forward']:.1f} ms "
+        f"({flops['forward'] / 1e12:.3f} TFLOP counted, "
+        f"{flops['forward'] / split['forward'] / 1e9:.1f} TFLOP/s), backward "
+        f"{split['backward']:.1f} ms ({flops['backward'] / 1e12:.3f} TFLOP, "
+        f"{flops['backward'] / split['backward'] / 1e9:.1f} TFLOP/s), optimizer "
+        f"{split['optimizer']:.1f} ms; bound of a step {bound_ms:.1f} ms (operations at "
+        f"{peak / 1e12:.0f} TFLOP/s float32), {bound_ms / step_ms:.0%} of the measured step")
+    return launches
+
+
+def phase_eval_deeplab(tmp: str, card: str) -> int:
+    """``cli.test``'s own function on the DeepLab checkpoint, then one image
+    with each test-time augmentation, then the card against the CPU."""
+    pth = _deeplab_checkpoint(tmp)
+    out_dir = os.path.join(tmp, "eval_deeplab")
+    render = os.path.join(HERE, "renders", "cityscapes.json")
+    base = ["-c", render] + _deeplab_opts(
+        out_dir, "DATASETS.SYNTHETIC_LENGTH", str(DEEPLAB_EVAL_IMAGES), "resume", pth)
+    args = test_cli.build_parser().parse_args(base)
+    cfg = load_cfg(args)
+    _check_deeplab_geometry(cfg)
+    logger = _stderr_logger("chip_smoke.eval_deeplab", logging.INFO)
+    tester = test_cli.make_tester(cfg, load_json(args.config_path), logger=logger)
+    forwards = []
+    hook = tester.segmentor.register_forward_hook(
+        lambda mod, inp, out: forwards.append(tuple(inp[0].shape)))
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    summary = tester.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _check_no_kernel("eval_deeplab")
+    want = [(1, 3, SERVE_H, SERVE_W)] * DEEPLAB_EVAL_IMAGES
+    if forwards != want:
+        raise AssertionError(f"eval forwards {forwards[:3]} x{len(forwards)}, want {want[0]} "
+                             f"x{len(want)}")
+    scalars = [v for v in summary.values() if isinstance(v, float)]
+    if not scalars or not all(np.isfinite(scalars)) or not 0 < summary["micro_miou"] <= 1:
+        raise AssertionError(f"summary {summary}")
+    cmt = tester.confusion
+    written = load_json(os.path.join(out_dir, "deeplab_confusion_matrix.json"))
+    if cmt.sum() != DEEPLAB_EVAL_IMAGES * SERVE_H * SERVE_W or written["cmt"] != cmt.tolist():
+        raise AssertionError("the confusion matrix does not count every pixel once")
+    x = torch.randn(1, 3, SERVE_H, SERVE_W, device=tester.device,
+                    generator=torch.Generator(tester.device).manual_seed(0))
+    forward_ms = host_ms(lambda: tester._probs_impl(x, (SERVE_H, SERVE_W)).sum().item())
+    device_ms = graph_ms(lambda: tester._probs_impl(x, (SERVE_H, SERVE_W)), reps=2, replays=5)
+    flops = _counted_flops(lambda: tester._probs_impl(x, (SERVE_H, SERVE_W)))
+    bound_ms = flops / PEAK_FLOP_PER_S[torch.float32] * 1e3
+    log(f"[eval_deeplab] forward of one {SERVE_W}x{SERVE_H} image: {flops / 1e12:.3f} TFLOP "
+        f"counted, bound {bound_ms:.2f} ms at 67 TFLOP/s float32, "
+        f"{flops / device_ms / 1e9:.1f} TFLOP/s achieved ({bound_ms / device_ms:.0%} of peak)")
+    log(f"[eval_deeplab] on {card}: {DEEPLAB_EVAL_IMAGES} images one at a time at "
+        f"{SERVE_W}x{SERVE_H}; first pass {wall * 1e3:.0f} ms "
+        f"({DEEPLAB_EVAL_IMAGES / wall:.1f} images/s, loader and warm-up included); "
+        f"forward of 1 alone {forward_ms:.1f} ms on the host's clock, {device_ms:.2f} ms "
+        f"of device time (CUDA graph replay); micro mIoU {summary['micro_miou']:.4f}, "
+        f"macro mIoU {summary['macro_miou']:.4f}")
+
+    # one image with each test-time augmentation: the head reads TEST.* per call
+    for opts, passes in ((("TEST.FLIP_TTA", "True"), [(2, 3, SERVE_H, SERVE_W)]),
+                         (("TEST.MULTI_SCALE", "True"),
+                          [(1, 3, int(SERVE_H * s), int(SERVE_W * s)) for s in cfg.TEST.SCALES])):
+        tester.cfg = load_cfg(test_cli.build_parser().parse_args(base + list(opts)))
+        forwards.clear()
+        probs = tester._probs_impl(x, (SERVE_H, SERVE_W))
+        tta_ms = host_ms(lambda: tester._probs_impl(x, (SERVE_H, SERVE_W)).sum().item())
+        err = (probs.sum(1) - 1).abs().max().item()
+        log(f"[eval_deeplab] {opts[0]} on one image: forwards {forwards[:len(passes)]}, "
+            f"{tta_ms:.1f} ms on the host's clock; probabilities sum to 1 within {err:.1e}")
+        if (forwards[:len(passes)] != passes or probs.shape != (1, 19, SERVE_H, SERVE_W)
+                or not torch.isfinite(probs).all() or err > 1e-4):
+            raise AssertionError(f"{opts[0]}: forwards {forwards}, probabilities "
+                                 f"{tuple(probs.shape)}, sum error {err}")
+    hook.remove()
+
+    # the card against the CPU: cuDNN with TF32 off computes what the CPU tests hold
+    small = load_cfg(test_cli.build_parser().parse_args(
+        base + ["MODEL.NAME", "deeplab_resnet18", "MODEL.DEVICE", "cpu"]))
+    segmentor = Segmentor(build_segmentor(small), small.MODEL.NUM_CLASSES)
+    randomize_weights_(segmentor, seed=0)
+    xs = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        (ref,), _ = segmentor(xs)
+        (out,), _ = segmentor.to(tester.device)(xs.to(tester.device))
+    err, scale = (out.cpu() - ref).abs().max().item(), ref.abs().max().item()
+    log(f"[eval_deeplab] deeplab_resnet18 at 64x64, card against CPU: max abs logit "
+        f"difference {err:.3e} of max |logit| {scale:.3f} (tolerance "
+        f"{DEEPLAB_CPU_TOLERANCE:g} x max)")
+    if not err <= DEEPLAB_CPU_TOLERANCE * scale:
+        raise AssertionError(f"card and CPU logits differ by {err} (max {scale})")
+    return launches
+
+
+def phase_serve_deeplab(tmp: str, card: str) -> int:
+    pth = _deeplab_checkpoint(tmp)
+    args = build_parser().parse_args(
+        ["--max-batch", str(MAX_BATCH), "-c", os.path.join(HERE, "renders", "cityscapes.json")]
+        + _deeplab_opts(tmp, "resume", pth))
+    cfg = load_cfg(args)
+    _check_deeplab_geometry(cfg)
+    _zero_kernel_counts()
+    inf, bodies, masks, batches, _, wall = serve_traffic(
+        "serve_deeplab", cfg, args, load_json(args.config_path), SERVE_W, SERVE_H, card,
+        (ccattn, "KERNEL_LAUNCHES"))
+    launches = _check_no_kernel("serve_deeplab")
+    x = serve_breakdown("serve_deeplab", inf, bodies, masks, SERVE_W, SERVE_H, batches,
+                        wall, card)
+    # one batch of masks against the same forward outside the server
+    _check_agreement("serve_deeplab", "the Tester's forward", inf.tester._probs_impl(
+        x, (SERVE_H, SERVE_W)), masks)
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1075,12 +1408,19 @@ def main(argv=None) -> int:
         eval_attn_launches = phase_eval_attn(tmp, card)
         torch.cuda.empty_cache()
         serve_attn_launches = phase_serve_attn(tmp, card)
+        torch.cuda.empty_cache()
+        deeplab_launches = phase_train_deeplab(tmp, card)
+        torch.cuda.empty_cache()
+        deeplab_launches += phase_eval_deeplab(tmp, card)
+        torch.cuda.empty_cache()
+        deeplab_launches += phase_serve_deeplab(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
         "launches": serve_launches + train_fwd_launches,
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
+        "launches_deeplab": deeplab_launches,
         **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
                                           "over H*W pixels with the criss-cross mask",
         "shape": list(MAIN_CC_SHAPE),
@@ -1089,7 +1429,8 @@ def main(argv=None) -> int:
         "name": "cc_attention_bwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_bwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
-        "launches": train_bwd_launches, **bwd, "library_ms": None,
+        "launches": train_bwd_launches, "launches_deeplab": deeplab_launches,
+        **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
@@ -1098,6 +1439,7 @@ def main(argv=None) -> int:
         "launches": eval_attn_launches + serve_attn_launches,
         "launches_eval_attn": eval_attn_launches,
         "launches_serve_attn": serve_attn_launches,
+        "launches_deeplab": deeplab_launches,
         **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")

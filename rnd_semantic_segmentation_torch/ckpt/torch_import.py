@@ -1,9 +1,10 @@
 """Weights between the JAX package's variables and reference ``state_dict``s.
 
-``gald_state_dicts_from_flax`` and ``attn_state_dicts_from_flax`` are the
-inverses of the JAX package's ``convert_state_dict`` with its GCPA and attn
-encoder and decoder rule tables: flax scope paths become the reference's torch
-keys, and by role
+``deeplab_state_dicts_from_flax``, ``gald_state_dicts_from_flax`` and
+``attn_state_dicts_from_flax`` are the inverses of the JAX package's
+``convert_state_dict`` with its ResNet backbone and ASPP classifier, GCPA,
+and attn encoder and decoder rule tables: flax scope paths become the
+reference's torch keys, and by role
 
   * conv kernels go from HWIO to OIHW (depthwise ones too);
   * transposed-conv kernels, which the JAX package stores flipped in
@@ -11,12 +12,16 @@ keys, and by role
     and flipped back along both spatial axes;
   * BN ``scale``/``bias`` become ``weight``/``bias``, and ``batch_stats``
     ``mean``/``var`` become ``running_mean``/``running_var``;
+  * FrozenBN's ``frozen`` collection (``weight``, ``bias``, ``mean``,
+    ``var``) becomes the buffers ``weight``, ``bias``, ``running_mean`` and
+    ``running_var``;
   * the criss-cross ``gamma`` keeps its shape (1,).
 
 They take the variables as nested dicts of arrays (numpy, or anything
 ``np.asarray`` reads) and import no JAX.
 
-``gald_flax_from_state_dicts`` goes the other way, for the training tests:
+``gald_flax_from_state_dicts`` and ``deeplab_flax_from_state_dicts`` go the
+other way, for the training tests:
 the port's tensors by ``state_dict`` key (weights, or gradients by parameter
 name) are laid out as a flax tree, so that loss, gradients and updated
 parameters can be compared leaf by leaf.
@@ -69,9 +74,23 @@ _ATTN_DECODER_RULES = [
     (r"/", "."),
 ]
 _ATTN_DECODER_TRANSPOSED = (r"^mid_upsampler$", r"^ups_\d$")
+# the deeplab family: torchvision ResNet under the reference's ``backbone``
+# (layer blocks and the downsample Sequential), and the ASPP ``conv2d_list``
+_RESNET_BACKBONE_RULES = [
+    (r"layer(\d+)_(\d+)", r"layer\1.\2"),
+    (r"downsample_conv$", "downsample.0"),
+    (r"downsample_bn$", "downsample.1"),
+    (r"/", "."),
+]
+_ASPP_CLASSIFIER_RULES = [
+    (r"^conv2d_(\d+)$", r"conv2d_list.\1"),
+    (r"/", "."),
+]
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "gamma": "gamma"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
+_FROZEN_LEAVES = {"weight": "weight", "bias": "bias", "mean": "running_mean",
+                  "var": "running_var"}
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -109,7 +128,20 @@ def _state_dict_from_flax(variables: Mapping, rules,
         arr = np.asarray(value, dtype=np.float32)
         sd[f"{prefix}.{_STAT_LEAVES[path[-1]]}"] = torch.from_numpy(arr.copy())
         sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+    for path, value in _flatten(variables.get("frozen", {})):
+        prefix = _torch_prefix(path[:-1], rules)
+        arr = np.asarray(value, dtype=np.float32)
+        sd[f"{prefix}.{_FROZEN_LEAVES[path[-1]]}"] = torch.from_numpy(arr.copy())
     return sd
+
+
+def deeplab_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
+    """JAX deeplab variables ``{"feature_extractor": ..., "classifier": ...}``
+    (ResNet backbone, BatchNorm or FrozenBN) -> torch state dicts."""
+    return {"feature_extractor": _state_dict_from_flax(variables["feature_extractor"],
+                                                       _RESNET_BACKBONE_RULES),
+            "classifier": _state_dict_from_flax(variables["classifier"],
+                                                _ASPP_CLASSIFIER_RULES)}
 
 
 def gald_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
@@ -127,7 +159,8 @@ def attn_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
 
 def _flax_from_state_dict(sd: Mapping, template: Mapping, rules) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
-    for collection, leaves in (("params", _PARAM_LEAVES), ("batch_stats", _STAT_LEAVES)):
+    for collection, leaves in (("params", _PARAM_LEAVES), ("batch_stats", _STAT_LEAVES),
+                               ("frozen", _FROZEN_LEAVES)):
         paths = [p for p, _ in _flatten(template.get(collection, {}))]
         keys = {p: f"{_torch_prefix(p[:-1], rules)}.{leaves[p[-1]]}" for p in paths}
         present = [p for p in paths if keys[p] in sd]
@@ -166,6 +199,19 @@ def gald_flax_from_state_dicts(tensors: Mapping[str, Mapping],
                                              _ENCODER_RULES),
             "decoder": _flax_from_state_dict(tensors["decoder"], template["decoder"],
                                              _DECODER_RULES)}
+
+
+def deeplab_flax_from_state_dicts(tensors: Mapping[str, Mapping],
+                                  template: Mapping[str, Any]) -> Dict[str, Dict]:
+    """The inverse of ``deeplab_state_dicts_from_flax``, as
+    ``gald_flax_from_state_dicts`` is for GALD; the collections are
+    ``params``, ``batch_stats`` and ``frozen``."""
+    return {"feature_extractor": _flax_from_state_dict(
+                tensors["feature_extractor"], template["feature_extractor"],
+                _RESNET_BACKBONE_RULES),
+            "classifier": _flax_from_state_dict(tensors["classifier"],
+                                                template["classifier"],
+                                                _ASPP_CLASSIFIER_RULES)}
 
 
 def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -1,13 +1,15 @@
 """Serving CLI: micro-batched HTTP inference daemon (serve/server.py).
 
     python -m rnd_semantic_segmentation_torch.cli.serve \\
+        -cfg configs/deeplabv2_r101_src.yaml --port 8500 resume <Aspp-N.pth>
+    python -m rnd_semantic_segmentation_torch.cli.serve \\
         -cfg configs/gald_src.yaml --port 8500 resume <weights.pth>
     python -m rnd_semantic_segmentation_torch.cli.serve \\
         -cfg configs/attn_src_kvasir.yaml -c renders/kvasir.json \\
         MODEL.FUSED_MBCONV True resume <weights.pth>
 
-Serves every family the port builds (gald, attn); ``-c`` names the render
-config whose palette colours the masks.  Runs on the CUDA card unless
+Serves every family the port builds (deeplab, gald, attn); ``-c`` names the
+render config whose palette colours the masks.  Runs on the CUDA card unless
 ``MODEL.DEVICE cpu`` is given.
 """
 

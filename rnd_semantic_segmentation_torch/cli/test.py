@@ -1,6 +1,9 @@
 """Evaluation CLI: mIoU/F1 and the confusion matrix on DATASETS.TEST.
 
     python -m rnd_semantic_segmentation_torch.cli.test \\
+        -cfg configs/deeplabv2_r101_src.yaml DATASETS.TEST synthetic_val \\
+        [TEST.FLIP_TTA True] [TEST.MULTI_SCALE True] resume <Aspp-N.pth>
+    python -m rnd_semantic_segmentation_torch.cli.test \\
         -cfg configs/attn_src_kvasir.yaml -c renders/kvasir.json \\
         DATASETS.TEST synthetic_val resume <weights.pth>
 

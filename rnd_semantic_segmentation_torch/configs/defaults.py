@@ -6,10 +6,16 @@ differs: ``MODEL.DEVICE`` is ``"cuda"`` here, and the port uses the CPU only
 when a caller sets ``MODEL.DEVICE cpu``.
 
 The port reads, for serving: MODEL.NAME, MODEL.NUM_CLASSES, MODEL.DEVICE,
-MODEL.FUSED_MBCONV (attn family, eval mode: the fused MBConv kernel),
-INPUT.INPUT_SIZE_TEST, AUG.NAME, TEST.QUANT, OUTPUT_DIR and resume; for
-evaluation also DATASETS.TEST, TEST.BATCH_SIZE, INPUT.IGNORE_LABEL,
-AUG.COLLATE and DATA_PIPE.NUM_WORKERS/PREFETCH; and for source training also INPUT.SOURCE_INPUT_SIZE_TRAIN, INPUT.IGNORE_LABEL,
+MODEL.FREEZE_BN (deeplab family: FrozenBN in the ResNet), MODEL.FUSED_MBCONV
+(attn family, eval mode: the fused MBConv kernel), INPUT.INPUT_SIZE_TEST,
+INPUT.PIXEL_MEAN/PIXEL_STD/TO_BGR255 (the aspp transforms), AUG.NAME,
+TEST.QUANT, TEST.FLIP_TTA/MULTI_SCALE/SCALES (deeplab test-time
+augmentation, one image a batch), OUTPUT_DIR and resume; for evaluation also
+DATASETS.TEST, TEST.BATCH_SIZE, INPUT.IGNORE_LABEL, AUG.COLLATE and
+DATA_PIPE.NUM_WORKERS/PREFETCH; and for source training also
+INPUT.SOURCE_INPUT_SIZE_TRAIN, INPUT.TARGET_INPUT_SIZE_TRAIN,
+INPUT.BRIGHTNESS/CONTRAST/SATURATION/HUE, INPUT.HORIZONTAL_FLIP_PROB_TRAIN,
+INPUT.INPUT_SCALES_TRAIN (the aspp train transforms), INPUT.IGNORE_LABEL,
 DATASETS.SOURCE_TRAIN/TEST/SYNTHETIC_LENGTH, AUG.COLLATE, SEED, DEBUG.NANS,
 DATA_PIPE.NUM_WORKERS/PREFETCH/SEED and the SOLVER keys EPOCHS, LR_METHOD,
 BASE_LR, LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
@@ -22,7 +28,8 @@ DIST.*, DEBUG.CHECKIFY).
 The other keys belong to parts of the JAX package not yet ported and are kept
 so that their configs load.  The port computes in float32 whatever MODEL.DTYPE
 says, in training as in serving; MODEL.FREEZE_BN does not reach the gald and
-attn families, here as in the JAX package.
+attn families, here as in the JAX package, and TEST.FLIP_TTA/MULTI_SCALE act on
+the deeplab family only, as there.
 """
 
 from .node import CfgNode

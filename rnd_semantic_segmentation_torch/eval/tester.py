@@ -2,6 +2,11 @@
 eval/tester.py).
 
 One loop for every ported family; the families differ in the probability head:
+  * deeplab — the ASPP output -> bilinear (align_corners=True) to the label
+    size -> softmax over classes; ``TEST.MULTI_SCALE`` (over
+    ``TEST.SCALES``, with mirrors when ``TEST.FLIP_TTA``) or else
+    ``TEST.FLIP_TTA`` averages test-time augmentations (eval/tta.py), which
+    take one image a batch and raise ``ValueError`` on more;
   * gald — decoder ``out2`` -> bilinear (align_corners=False) to the label
     size -> softmax over classes;
   * attn — ``sigmoid(out_0)`` in float32, one channel per class; the mask is
@@ -17,8 +22,8 @@ per-class areas and the confusion matrix are computed there, and their small
 results are fetched once after the loop; the summary (macro and micro
 mIoU/F1) is logged and ``<family>_confusion_matrix.json`` is written to
 OUTPUT_DIR.  Pseudo-label export (``saveres``) and quantized eval raise until
-their slices are ported; the confusion-matrix heat map, test-time
-augmentation (a deeplab option) and multi-device eval are not ported.
+their slices are ported; the confusion-matrix heat map and multi-device eval
+are not ported.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from ..models.build import build_segmentor
 from ..ops import resize_bilinear
 from ..train.segmentor import Segmentor
 from ..utils import dump_json, resolve_device
+from . import tta
 from .metrics import AverageMeter, confusion_matrix, intersection_and_union
 
 
@@ -85,6 +91,21 @@ class Tester:
     def _probs_impl(self, x: torch.Tensor, label_size: Tuple[int, int]) -> torch.Tensor:
         """x [B,3,H,W] float32 on the model's device -> probs [B,C,H',W']."""
         fam = self.spec.family
+        if fam == "deeplab":
+            def forward(image, size):
+                outputs, _ = self.segmentor(image, label_size=size)
+                return outputs[0]
+
+            test = self.cfg.TEST
+            if test.MULTI_SCALE:
+                return tta.multi_scale_inference(forward, x, label_size,
+                                                 flip=bool(test.FLIP_TTA),
+                                                 scales=tuple(test.SCALES))
+            if test.FLIP_TTA:
+                return tta.inference(forward, x, label_size, flip=True)
+            out = resize_bilinear(forward(x, label_size).float(), label_size,
+                                  align_corners=True)
+            return torch.softmax(out, dim=1)
         if fam == "gald":
             outputs, _ = self.segmentor(x)
             out = resize_bilinear(outputs[-1].float(), label_size, align_corners=False)

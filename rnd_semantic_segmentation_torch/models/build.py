@@ -1,11 +1,13 @@
 """Model registry (counterpart of the JAX package's models/build.py).
 
-MODEL.NAME is ``<family>_<backbone>``.  The port builds the ``gald`` family
+MODEL.NAME is ``<family>_<backbone>``.  The port builds the ``deeplab``
+family with a ResNet backbone (``deeplab_resnet{18,34,50,101,152}``: dilated
+ResNet + ASPP-V2, FrozenBN when ``MODEL.FREEZE_BN``), the ``gald`` family
 (HarDNet68 + GCPA-CC) and the ``attn`` family (EfficientNet-B0..B4 encoder +
-attention-gated UNet decoder); every other family raises NotImplementedError
-until its slice is ported.  ``MODEL.FUSED_MBCONV`` reaches the attn encoder as
-a constructor argument: in eval mode its eligible MBConv blocks then run the
-fused kernel of ops/mbconv.py.
+attention-gated UNet decoder); ``deeplab_vgg16`` and every other family raise
+NotImplementedError until their slices are ported.  ``MODEL.FUSED_MBCONV``
+reaches the attn encoder as a constructor argument: in eval mode its eligible
+MBConv blocks then run the fused kernel of ops/mbconv.py.
 """
 
 from __future__ import annotations
@@ -16,9 +18,12 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
+from .aspp import ASPPClassifierV2, ResNetFeatureExtractor
 from .attn_unet import _DEPTH_MAP, AttnDecoder
 from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
+from .layers import FrozenBatchNorm2d
+from .resnet import _ARCHS, ResNet, output_channels
 
 
 def split_model_name(name: str) -> Tuple[str, str]:
@@ -47,6 +52,24 @@ class SegmentorSpec:
 
 def build_segmentor(cfg) -> SegmentorSpec:
     family, backbone = split_model_name(cfg.MODEL.NAME)
+    if family == "deeplab":
+        if backbone.startswith("vgg"):
+            raise NotImplementedError(
+                f"deeplab backbone {backbone!r}: the VGG16 feature extractor comes "
+                f"with a later slice; the port builds the ResNet backbones")
+        if not backbone.startswith("resnet") or backbone not in _ARCHS:
+            raise NotImplementedError(
+                f"deeplab backbone {backbone!r}: one of resnet18, resnet34, resnet50, "
+                f"resnet101, resnet152")
+        return SegmentorSpec(
+            family=family, backbone=backbone,
+            modules={"feature_extractor": ResNetFeatureExtractor(
+                         backbone, freeze_bn=bool(cfg.MODEL.FREEZE_BN)),
+                     "classifier": ASPPClassifierV2(output_channels(backbone),
+                                                    cfg.MODEL.NUM_CLASSES)},
+            lr_mults={"feature_extractor": 1.0, "classifier": 10.0},
+            optimizer="sgd", ckpt_prefix="Aspp", disc_tap="features",
+        )
     if family == "gald":
         if backbone not in ("", "hardnet68"):
             raise NotImplementedError(f"gald backbone {backbone!r}: only hardnet68")
@@ -74,7 +97,8 @@ def build_segmentor(cfg) -> SegmentorSpec:
             "model family 'attnwrap' (the single-module attn variant) comes with "
             "the attn training slice")
     raise NotImplementedError(
-        f"model family {family!r} is not ported yet (the port builds 'gald' and 'attn')")
+        f"model family {family!r} is not ported yet (the port builds 'deeplab', "
+        f"'gald' and 'attn')")
 
 
 @torch.no_grad()
@@ -86,6 +110,12 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     logits of order 1 to 5; biases and BN affines are small and nonzero,
     running statistics random, and every criss-cross ``gamma`` is set to
     ``gamma``: at its init value 0 the attention would contribute nothing.
+    The norms of a ResNet take weights in [0.25, 0.75]: with running
+    statistics (FrozenBN always, BatchNorm in eval mode) nothing normalises
+    the sum of a residual block, and at [0.5, 1.5] each block about doubles
+    the second moment of its input, so that ResNet101's 33 blocks take the
+    logits past 1e5; a Bottleneck branch passes three norms, and halving
+    them shrinks it about 64-fold, which keeps the logits of order 1.
     The draws are made on the CPU, so a seed gives the same weights on
     every device.
     """
@@ -94,6 +124,8 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     def uniform(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
+    damped = {id(n) for m in module.modules() if isinstance(m, ResNet)
+              for n in m.modules()}
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             # OIHW, or IOHW for a transposed conv: 4 of its 16 taps reach an output
@@ -103,8 +135,8 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
                            * (1.7 / fan_in) ** 0.5)
             if m.bias is not None:
                 uniform(m.bias, -0.1, 0.1)
-        elif isinstance(m, nn.BatchNorm2d):
-            uniform(m.weight, 0.5, 1.5)
+        elif isinstance(m, (nn.BatchNorm2d, FrozenBatchNorm2d)):
+            uniform(m.weight, *((0.25, 0.75) if id(m) in damped else (0.5, 1.5)))
             uniform(m.bias, -0.2, 0.2)
             uniform(m.running_mean, -0.2, 0.2)
             uniform(m.running_var, 0.5, 1.5)

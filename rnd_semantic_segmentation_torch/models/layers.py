@@ -4,8 +4,10 @@
 ``nn.ConvTranspose2d`` (weights IOHW; the JAX package stores the same kernel
 flipped, in correlation orientation).  ``BatchNorm`` is ``nn.BatchNorm2d``,
 by default with eps 1e-5 and momentum 0.1 (the EfficientNet encoder asks for
-1e-3 and 0.01), which in eval mode applies its running statistics.  ``relu``,
-``relu6``, ``leaky_relu`` and ``swish`` are the plain functions.
+1e-3 and 0.01), which in eval mode applies its running statistics.
+``FrozenBatchNorm2d`` is the reference's buffers-only norm of the DeepLab
+backbones, and ``make_norm`` picks one of the two by ``MODEL.FREEZE_BN``.
+``relu``, ``relu6``, ``leaky_relu`` and ``swish`` are the plain functions.
 """
 
 from __future__ import annotations
@@ -23,6 +25,39 @@ ConvTranspose2d = nn.ConvTranspose2d
 def BatchNorm(num_features: int, eps: float = 1e-5,
               momentum: float = 0.1) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(num_features, eps=eps, momentum=momentum)
+
+
+class FrozenBatchNorm2d(nn.Module):
+    """Buffers-only BatchNorm: ``x * scale + (bias - running_mean * scale)``
+    with ``scale = weight * rsqrt(running_var)``, in training as in eval.
+
+    There is **no epsilon**, as in the reference (and unlike torchvision's
+    ``FrozenBatchNorm2d``, which adds 1e-5).  The four buffers carry the
+    reference's names, so a ``state_dict`` reads ``bn1.running_mean``; no
+    parameter means the optimizer never sees them.
+    """
+
+    def __init__(self, num_features: int):
+        super().__init__()
+        self.register_buffer("weight", torch.ones(num_features))
+        self.register_buffer("bias", torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        scale = self.weight * torch.rsqrt(self.running_var)
+        shift = self.bias - self.running_mean * scale
+        return x * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+
+
+def make_norm(kind: str):
+    """``"bn"``: ``nn.BatchNorm2d`` (eps 1e-5, momentum 0.1); ``"frozen"``:
+    ``FrozenBatchNorm2d``.  Returns the constructor, called with the channels."""
+    if kind == "bn":
+        return BatchNorm
+    if kind == "frozen":
+        return FrozenBatchNorm2d
+    raise ValueError(f"unknown norm kind {kind!r}")
 
 
 def relu(x: torch.Tensor) -> torch.Tensor:

@@ -56,7 +56,7 @@
 //      row of 40 at Cq=32, C=256.  Otherwise they stream through 32-channel
 //      slices, two stages, slice t+1 copied while the block multiplies slice
 //      t.  Above 48 KB a block must opt in: cudaFuncSetAttribute runs once per
-//      instance, and its error is returned like a launch's.
+//      instance and card, and its error is returned like a launch's.
 //   2. Large lines.  A row of more than 64 pixels is cut into equal query
 //      tiles (pass 1) and, in pass 3, into query tiles that write dq (all
 //      keys) and key tiles that write dk and dv (all queries), in one grid:
@@ -103,6 +103,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <initializer_list>
 
 namespace {
@@ -112,6 +113,7 @@ constexpr int kCH = 32;                // channels per staged slice
 constexpr int kS = kCH + 4;            // floats per staged row
 constexpr int kTile = 64;              // pixels of a row tile, for rows longer than that
 constexpr int kMaxSmemBytes = 232448;  // the most a block can opt in to on sm_90
+constexpr int kMaxDevices = 64;        // cards whose opt-in is kept
 
 enum Pass : int { kRowStats = 0, kColumn = 1, kRowFinal = 2 };
 
@@ -648,11 +650,24 @@ auto instance(int n) {
   return tile_side(n) == 4 ? &cc_attention_bwd_kernel<T, 4> : &cc_attention_bwd_kernel<T, 2>;
 }
 
+// The calling thread's current card, or -1 past kMaxDevices.
+int current_device() {
+  int device = 0;
+  if (cudaGetDevice(&device) != cudaSuccess || device < 0 || device >= kMaxDevices) return -1;
+  return device;
+}
+
+// The shared-memory opt-in holds per card: made once on each (and on every
+// launch on a card past kMaxDevices).
 template <typename T, int R>
 cudaError_t opt_in() {
-  static const cudaError_t err = cudaFuncSetAttribute(
+  static std::atomic<bool> done[kMaxDevices];
+  const int device = current_device();
+  if (device >= 0 && done[device].load(std::memory_order_acquire)) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
       cc_attention_bwd_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kMaxSmemBytes);
+  if (err == cudaSuccess && device >= 0) done[device].store(true, std::memory_order_release);
   return err;
 }
 

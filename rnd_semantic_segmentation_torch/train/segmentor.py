@@ -1,6 +1,8 @@
 """Segmentor: one forward for every family (counterpart of the JAX package's
-train/segmentor.py).  gald: ``decoder(x, encoder(x))``, whose discriminator
-tap is the last encoder tap.  attn: ``decoder(encoder(x))`` with five outputs
+train/segmentor.py).  deeplab: ``classifier(feature_extractor(x),
+label_size)``, one output at the label size, tapped at the backbone
+features.  gald: ``decoder(x, encoder(x))``, whose discriminator tap is the
+last encoder tap.  attn: ``decoder(encoder(x))`` with five outputs
 at scales 1 to 1/16, tapped at ``reduction_5``; eval only so far.
 """
 
@@ -26,9 +28,10 @@ class Segmentor(nn.Module):
         """Returns (outputs tuple, disc_tap feature); x is NCHW float.
 
         ``train=True`` puts every BatchNorm on batch statistics and updates
-        its running statistics; ``train=False`` applies the running ones.
-        ``label_size`` is for the families whose head resizes to the label;
-        the gald and attn heads are at the input size already.
+        its running statistics; ``train=False`` applies the running ones.  A
+        ``FrozenBatchNorm2d`` applies its buffers either way.
+        ``label_size`` is for the deeplab head, which resizes to it (the input
+        size when None); the gald and attn heads are at the input size.
         """
         fam = self.spec.family
         if fam == "attn" and train:
@@ -37,6 +40,10 @@ class Segmentor(nn.Module):
                 "comes with the attn training slice; the port evaluates and serves it")
         if self.training != train:
             self.train(train)
+        if fam == "deeplab":
+            fea = self.parts["feature_extractor"](x)
+            size = tuple(label_size) if label_size is not None else tuple(x.shape[-2:])
+            return (self.parts["classifier"](fea, size),), fea
         if fam == "gald":
             taps = self.parts["encoder"](x)
             outs = self.parts["decoder"](x, taps)

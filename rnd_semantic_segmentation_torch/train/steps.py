@@ -4,9 +4,10 @@ One call does the forward in train mode, the family's loss, the backward and
 one optimizer step per part at this iteration's LR.
 
 Loss wiring per family:
+  * deeplab: CE(ignore=255) on the ASPP output at the label size.
   * gald: deep supervision, CE(ignore=255) on the four heads weighted
     1.0/0.8/0.6/0.4 on (out2, out3, out4, out5).
-  * deeplab, pranet, attn: with their slices of the port.
+  * pranet, attn: with their slices of the port.
 
 LR schedules follow the reference trainers: poly per iteration for deeplab and
 gald, per-epoch warm-up and cosine for pranet and attn whatever
@@ -32,6 +33,10 @@ from .state import TrainState, apply_updates
 
 def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callable:
     fam = spec.family
+    if fam == "deeplab":
+        def loss_fn(outputs, label):
+            return losses.cross_entropy(outputs[0], label, ignore_label)
+        return loss_fn
     if fam == "gald":
         def loss_fn(outputs, label):
             out5, out4, out3, out2 = outputs
@@ -40,7 +45,7 @@ def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callabl
                     + losses.cross_entropy(out4, label, ignore_label) * 0.6
                     + losses.cross_entropy(out5, label, ignore_label) * 0.4)
         return loss_fn
-    if fam in ("deeplab", "pranet", "attn", "attnwrap"):
+    if fam in ("pranet", "attn", "attnwrap"):
         raise NotImplementedError(
             f"the {fam} loss comes with the {fam} slice of the port")
     raise NotImplementedError(fam)

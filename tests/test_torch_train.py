@@ -508,6 +508,6 @@ def test_unported_step_knobs_and_families_raise():
                                 TrainState(optimizers=make_optimizers(seg.spec, cfg)))
 
     class Spec:
-        family = "deeplab"
-    with pytest.raises(NotImplementedError, match="deeplab"):
+        family = "pranet"
+    with pytest.raises(NotImplementedError, match="pranet"):
         make_family_loss(Spec, NC)

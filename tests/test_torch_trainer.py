@@ -160,8 +160,8 @@ def test_prune_checkpoints(tmp_path):
     ("MODEL.REMAT_BLOCKS", "True"),
     ("DEBUG.CHECKIFY", "True"),
     ("DATASETS.SOURCE_TRAIN", "gta5_train"),
-    ("MODEL.NAME", "deeplab_resnet101"),
-    ("AUG.NAME", "aspp"),
+    ("MODEL.NAME", "deeplab_vgg16"),
+    ("AUG.NAME", "pra"),
 ], ids=lambda o: o[0])
 def test_every_knob_that_waits_raises(tmp_path, opts):
     with pytest.raises(NotImplementedError):
