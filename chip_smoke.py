@@ -59,15 +59,31 @@ no result line on any failure.  Phases, each of which raises:
               against the same forward on the CPU;
  10. serve_deeplab  the same model behind the HTTP server, 16 PNG requests of
               1024x512 from 8 threads, one batch of masks checked against the
-              same forward outside the server.
-No hand kernel lies on the DeepLab path: its phases check that none of the
-three launched.
+              same forward outside the server;
+ 11. train_attn  the attn training path: configs/attn_src_kvasir.yaml
+              (attn_efficientnet-b2, 2 classes, full width and depth, seeded
+              weights) through the source-training CLI's parser and
+              ``Trainer`` at 512x512, batch 20, Adam with L2 weight decay
+              1e-4 and the decoder at 10x LR, warm-up cosine per epoch,
+              Tversky + BCE at five scales, drop-connect on, the config's
+              attn augmentation, float32, TF32 off, MODEL.FUSED_MBCONV on, on
+              the synthetic dataset, for 6 steps; the loss must be finite,
+              every parameter of both parts and every BN running statistic
+              move, and no hand kernel launch; a step split into forward,
+              backward and optimizer; two generator states must give two
+              train-mode outputs; then the checkpoint it wrote through the
+              test CLI's function as in eval_attn (17 launches per fused
+              forward, the fused and unfused confusion matrices within the
+              same tolerance).
+No hand kernel lies on the DeepLab path or on the attn training path: their
+phases check that none of the three launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
 phases (kernels, kernels_bwd, kernels_mbconv, serve, train, eval_attn,
-serve_attn, train_deeplab, eval_deeplab, serve_deeplab; device and build
-always run) and prints no result lines: an aid while working on one path.
+serve_attn, train_deeplab, eval_deeplab, serve_deeplab, train_attn; device
+and build always run) and prints no result lines: an aid while working on
+one path.
 """
 
 from __future__ import annotations
@@ -78,6 +94,7 @@ import io
 import json
 import logging
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -158,6 +175,12 @@ MAX_TIE_SHARE = 1e-3
 DEEPLAB_GEOMETRY = ("deeplab_resnet101", 19, True, TRAIN_BATCH, (TRAIN_W, TRAIN_H),
                     (SERVE_W, SERVE_H), 1)
 DEEPLAB_EVAL_IMAGES = 32
+# the attn training path: configs/attn_src_kvasir.yaml as (MODEL.NAME,
+# NUM_CLASSES, SOLVER.BATCH_SIZE, SOURCE_INPUT_SIZE_TRAIN, AUG.NAME, the AUG
+# probabilities (PROB, BLUR, ROTATE, JITTER, FLIP), BASE_LR, WEIGHT_DECAY)
+ATTN_TRAIN_GEOMETRY = (ATTN_MODEL, 2, 20, (ATTN_SIZE, ATTN_SIZE), "attn", (0.7,) * 5,
+                       1e-3, 1e-4)
+ATTN_TRAIN_STEPS = 6
 # the card against the CPU: a seeded deeplab_resnet18 at 64x64, logits within
 # this share of their largest magnitude (float32 sums in other orders through
 # 20 convolutions; cuDNN without TF32)
@@ -840,22 +863,20 @@ def _check_attn_geometry(cfg) -> None:
         raise AssertionError(f"configs/attn_src_kvasir.yaml gives {geometry}")
 
 
-def phase_eval_attn(tmp: str, card: str) -> int:
-    """``cli.test``'s own function on the attn family with the fused kernel
-    on, then the same run with it off."""
-    pth = os.path.join(tmp, "Attn-seeded.pth")
-    logger = _stderr_logger("chip_smoke.eval_attn", logging.INFO)
+def _eval_attn_checkpoint(tag: str, tmp: str, pth: str, card: str) -> int:
+    """``cli.test``'s own function on the attn checkpoint ``pth``, with the
+    fused kernel on, then the same run with it off; returns the fused run's
+    launches."""
+    logger = _stderr_logger(f"chip_smoke.{tag}", logging.INFO)
     runs = {}
     for fused in (True, False):
-        out_dir = os.path.join(tmp, f"eval_attn_{'fused' if fused else 'unfused'}")
+        out_dir = os.path.join(tmp, f"{tag}_{'fused' if fused else 'unfused'}")
         args = test_cli.build_parser().parse_args(_attn_opts(
             out_dir, pth, "DATASETS.TEST", "synthetic_val",
             "DATASETS.SYNTHETIC_LENGTH", str(ATTN_EVAL_IMAGES),
             "TEST.BATCH_SIZE", str(ATTN_BATCH), "MODEL.FUSED_MBCONV", str(fused)))
         cfg = load_cfg(args)
         _check_attn_geometry(cfg)
-        if fused:
-            _seeded_checkpoint("eval_attn", cfg, pth)
         tester = test_cli.make_tester(cfg, load_json(args.config_path), logger=logger)
         forwards = []
         hook = tester.segmentor.register_forward_hook(
@@ -883,14 +904,14 @@ def phase_eval_attn(tmp: str, card: str) -> int:
         written = load_json(os.path.join(out_dir, "attn_confusion_matrix.json"))
         if cmt.sum() != ATTN_EVAL_IMAGES * ATTN_SIZE ** 2 or written["cmt"] != cmt.tolist():
             raise AssertionError(f"confusion matrix {cmt.tolist()} / file {written}")
-        x = torch.rand(ATTN_BATCH, 3, ATTN_SIZE, ATTN_SIZE, device="cuda",
-                       generator=torch.Generator(device="cuda").manual_seed(0))
+        x = torch.rand(ATTN_BATCH, 3, ATTN_SIZE, ATTN_SIZE, device=tester.device,
+                       generator=torch.Generator(device=tester.device).manual_seed(0))
         forward_ms = host_ms(
             lambda: tester._probs_impl(x, (ATTN_SIZE, ATTN_SIZE)).sum().item())
         # the same forward replayed from a CUDA graph: device time with no host in the way
         device_ms = graph_ms(lambda: tester._probs_impl(x, (ATTN_SIZE, ATTN_SIZE)),
                              reps=2, replays=5)
-        log(f"[eval_attn] FUSED_MBCONV {fused} on {card}: {ATTN_EVAL_IMAGES} images in "
+        log(f"[{tag}] FUSED_MBCONV {fused} on {card}: {ATTN_EVAL_IMAGES} images in "
             f"{len(forwards)} batches of {ATTN_BATCH} at {ATTN_SIZE}x{ATTN_SIZE}, "
             f"{launches} fused_mbconv_fwd launches"
             f"{f' = {MBCONV_LAUNCHES_PER_FORWARD} x {len(forwards)} forwards' if fused else ''}"
@@ -902,11 +923,20 @@ def phase_eval_attn(tmp: str, card: str) -> int:
         runs[fused] = (cmt, summary, launches)
     moved = int(np.abs(runs[True][0] - runs[False][0]).sum()) // 2
     limit = int(MAX_TIE_SHARE * ATTN_EVAL_IMAGES * ATTN_SIZE ** 2)
-    log(f"[eval_attn] fused vs unfused confusion matrices: {moved} pixels moved "
+    log(f"[{tag}] fused vs unfused confusion matrices: {moved} pixels moved "
         f"(at most {limit}: ties at float32 precision)")
     if moved > limit:
         raise AssertionError(f"fused and unfused eval disagree on {moved} pixels")
     return runs[True][2]
+
+
+def phase_eval_attn(tmp: str, card: str) -> int:
+    """The attn eval path on seeded weights."""
+    pth = os.path.join(tmp, "Attn-seeded.pth")
+    cfg = load_cfg(test_cli.build_parser().parse_args(_attn_opts(tmp, pth)))
+    _check_attn_geometry(cfg)
+    _seeded_checkpoint("eval_attn", cfg, pth)
+    return _eval_attn_checkpoint("eval_attn", tmp, pth, card)
 
 
 def phase_serve_attn(tmp: str, card: str) -> int:
@@ -974,9 +1004,11 @@ def _report_steps(tag: str, trainer, card: str, peak_mib: float) -> float:
     times = trainer.meters.meters["time"].series[1:]
     waits = trainer.meters.meters["data"].series[1:]
     step_ms = float(np.median(times)) * 1e3
-    log(f"[{tag}] on {card}: {step_ms:.1f} ms/step (median of steps 2..{trainer.state.step}; "
-        f"first step {trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
-        f"{TRAIN_BATCH / step_ms * 1e3:.2f} images/s, data share of a step "
+    batch = trainer.cfg.SOLVER.BATCH_SIZE
+    log(f"[{tag}] on {card}: {step_ms:.1f} ms/step of {batch} (median of steps "
+        f"2..{trainer.state.step}; first step "
+        f"{trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
+        f"{batch / step_ms * 1e3:.2f} images/s, data share of a step "
         f"{sum(waits) / sum(times):.1%}, peak memory {peak_mib:.0f} MiB, float32, TF32 off")
     return step_ms
 
@@ -1102,12 +1134,12 @@ def _zero_kernel_counts() -> None:
 
 
 def _check_no_kernel(tag: str) -> int:
-    """No hand kernel lies on the DeepLab path: the three counts, set to 0
-    before the phase's run, must still be 0."""
+    """No hand kernel lies on the DeepLab path, and none on the attn training
+    path: the three counts, set to 0 before the phase's run, must still be 0."""
     counts = {f"{m.__name__.rsplit('.', 1)[1]}.{n}": getattr(m, n) for m, n in KERNEL_COUNTERS}
     log(f"[{tag}] hand-kernel launches in this run: {counts}")
     if any(counts.values()):
-        raise AssertionError(f"a hand kernel ran on the DeepLab path: {counts}")
+        raise AssertionError(f"a hand kernel ran on the {tag} path: {counts}")
     return 0
 
 
@@ -1137,13 +1169,29 @@ def _deeplab_checkpoint(tmp: str) -> str:
     return pth
 
 
+def _conv_backward_flop(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding,
+                        _dilation, transposed, _output_padding, _groups, output_mask,
+                        out_shape, **kwargs) -> int:
+    """Each gradient of a convolution (input, weight) costs what its forward
+    costs.  torch.utils.flop_counter's own rule counts the weight gradient of
+    a grouped convolution as if it were not grouped: a depthwise one's
+    C times over, which made an EfficientNet backward read 26 times its
+    forward.  Without groups the two rules give the same count."""
+    from torch.utils.flop_counter import conv_flop_count
+
+    return sum(bool(m) for m in output_mask[:2]) * conv_flop_count(
+        x_shape, w_shape, grad_out_shape, transposed)
+
+
 def _counted_flops(fn) -> int:
     """The floating-point operations of ``fn()`` as torch.utils.flop_counter
     counts them from the shapes of its convolutions and products (2 per
-    multiply-add): the work the function must do, whatever the device."""
+    multiply-add; a convolution's backward by ``_conv_backward_flop``): the
+    work the function must do, whatever the device."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    counter = FlopCounterMode(display=False)
+    counter = FlopCounterMode(display=False, custom_mapping={
+        torch.ops.aten.convolution_backward: _conv_backward_flop})
     with counter:
         fn()
     return counter.get_total_flops()
@@ -1153,16 +1201,18 @@ def _step_split(trainer, x, label, reps: int = 3) -> dict:
     """Host-clock ms of a train step's forward (with the loss), backward and
     optimizer updates, each ended by a device sync: medians of ``reps`` steps
     at the trainer's last LR; and the counted operations of the forward and
-    of the backward."""
+    of the backward.  The forward draws drop-connect (the attn families)
+    from a generator of its own."""
     from rnd_semantic_segmentation_torch.train.state import apply_updates
     from rnd_semantic_segmentation_torch.train.steps import make_family_loss
 
     cfg, spec, segmentor = trainer.cfg, trainer.spec, trainer.segmentor
     loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
     size = tuple(label.shape[1:3])
+    gen = torch.Generator(device=x.device).manual_seed(0)
     held = []
     flops = {"forward": _counted_flops(lambda: held.append(
-        loss_fn(segmentor(x, label_size=size, train=True)[0], label)))}
+        loss_fn(segmentor(x, label_size=size, train=True, generator=gen)[0], label)))}
     flops["backward"] = _counted_flops(lambda: held.pop().backward())
     lr = trainer.lr_data[-1]
     parts = {"forward": [], "backward": [], "optimizer": []}
@@ -1171,7 +1221,7 @@ def _step_split(trainer, x, label, reps: int = 3) -> dict:
             opt.zero_grad(set_to_none=True)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        outputs, _ = segmentor(x, label_size=size, train=True)
+        outputs, _ = segmentor(x, label_size=size, train=True, generator=gen)
         loss = loss_fn(outputs, label)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -1381,6 +1431,135 @@ def phase_serve_deeplab(tmp: str, card: str) -> int:
     return launches
 
 
+def phase_train_attn(tmp: str, card: str):
+    """The attn training path through the source-training CLI's parser and
+    ``Trainer``, then its checkpoint through ``cli.test``'s own function with
+    the fused kernel on and off.  Returns the fused kernel's launches in
+    training (must be 0) and in the fused eval of the checkpoint."""
+    from rnd_semantic_segmentation_torch.ckpt.torch_import import load_reference_checkpoint
+    from rnd_semantic_segmentation_torch.data import Augmenter
+
+    out_dir = os.path.join(tmp, "train_attn")
+    batch = ATTN_TRAIN_GEOMETRY[2]
+    opts = ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train",
+            "DATASETS.SYNTHETIC_LENGTH", str(batch * ATTN_TRAIN_STEPS),
+            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1",
+            "MODEL.FUSED_MBCONV", "True", "OUTPUT_DIR", out_dir]
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    aug = cfg.AUG
+    geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
+                tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN), aug.NAME,
+                (aug.PROB, aug.BLUR_PROB, aug.ROTATE_PROB, aug.JITTER_PROB, aug.FLIP_PROB),
+                cfg.SOLVER.BASE_LR, cfg.SOLVER.WEIGHT_DECAY)
+    if geometry != ATTN_TRAIN_GEOMETRY:
+        raise AssertionError(f"configs/attn_src_kvasir.yaml gives {geometry}, "
+                             f"want {ATTN_TRAIN_GEOMETRY}")
+    logger = _stderr_logger("chip_smoke.train_attn", logging.INFO)
+    trainer = train_src.make_trainer("attn", cfg, logger=logger)
+    segmentor = trainer.segmentor
+    randomize_weights_(segmentor, seed=0)
+    parts = trainer.spec.modules
+    before = {name: {n: p.detach().clone() for n, p in m.named_parameters()}
+              for name, m in parts.items()}
+    stats = {n: b.clone() for n, b in segmentor.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    rates = [b.drop_connect_rate for b in parts["encoder"].blocks]
+    log(f"[train_attn] {cfg.MODEL.NAME}: "
+        f"{sum(p.numel() for p in segmentor.parameters())} parameters, "
+        f"{len(stats) // 2} BatchNorms on batch statistics, drop-connect at "
+        f"0..{max(rates):.4f} over {len(rates)} blocks, seeded weights")
+
+    # the host's share: the synthetic images and the attn augmentation alone
+    dataset = trainer.train_loader.dataset
+    t0 = time.perf_counter()
+    raw = [dataset._gen(i)[:2] for i in range(batch)]
+    make_ms = (time.perf_counter() - t0) / batch * 1e3
+    transform = Augmenter(cfg, "train", rng=random.Random(0)).build_transform()
+    t0 = time.perf_counter()
+    for image, label in raw:
+        transform(image, label)
+    aug_ms = (time.perf_counter() - t0) / batch * 1e3
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    train_launches = _check_no_kernel("train_attn")
+
+    steps = trainer.state.step
+    if steps != ATTN_TRAIN_STEPS or len(trainer.loss_data) != ATTN_TRAIN_STEPS:
+        raise AssertionError(f"{steps} steps taken, want {ATTN_TRAIN_STEPS}")
+    if not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"losses {trainer.loss_data}")
+    lrs = {n: o.param_groups[0]["lr"] for n, o in trainer.state.optimizers.items()}
+    log(f"[train_attn] {steps} steps of batch {batch} at {ATTN_SIZE}x{ATTN_SIZE}: losses "
+        f"{[round(v, 4) for v in trainer.loss_data]}; LR by part {lrs}")
+    if abs(lrs["decoder"] - 10 * lrs["encoder"]) > 1e-9 * lrs["decoder"]:
+        raise AssertionError(f"the decoder's LR is not 10x the encoder's: {lrs}")
+    for name, module in parts.items():
+        moved = [(p.detach() - before[name][n]).abs().max().item()
+                 for n, p in module.named_parameters()]
+        log(f"[train_attn]   {name}: {sum(m > 0 for m in moved)} of {len(moved)} "
+            f"parameters moved, by at most {max(moved):.3e}")
+        if not all(m > 0 and np.isfinite(m) for m in moved):
+            raise AssertionError(f"a parameter of {name} did not move")
+    buffers = dict(segmentor.named_buffers())
+    still = [n for n, b in stats.items() if torch.equal(buffers[n], b)]
+    log(f"[train_attn]   BN running statistics moved: {len(stats) - len(still)} of "
+        f"{len(stats)}")
+    if still:
+        raise AssertionError(f"BN running statistics did not move: {still[:5]}")
+    _report_steps("train_attn", trainer, card, peak_mib)
+    log(f"[train_attn] host, one core: synthetic image and label {make_ms:.1f} ms, attn "
+        f"augmentation (config probabilities) {aug_ms:.1f} ms an image at "
+        f"{ATTN_SIZE}x{ATTN_SIZE}; the loader runs {cfg.DATA_PIPE.NUM_WORKERS} threads")
+
+    # the checkpoint holds what was trained; it goes through the eval path
+    pth = os.path.join(out_dir, "Attn-1.pth")
+    saved = load_reference_checkpoint(pth)
+    for name, module in parts.items():
+        for key, value in module.state_dict().items():
+            if not torch.equal(saved[name][key], value.cpu()):
+                raise AssertionError(f"{name}.{key} differs between the trainer and {pth}")
+    log(f"[train_attn] {pth} ({os.path.getsize(pth) / 2 ** 20:.0f} MiB) holds the "
+        f"trained weights and statistics")
+    eval_launches = _eval_attn_checkpoint("eval_attn_trained", tmp, pth, card)
+
+    loader = trainer.train_loader
+    loader.set_epoch(1)
+    sample = next(iter(loader))
+    x = torch.from_numpy(sample["image"]).to(trainer.device).permute(0, 3, 1, 2).contiguous()
+    label = torch.from_numpy(sample["label"]).to(trainer.device)
+    split, flops = _step_split(trainer, x, label)
+    peak = PEAK_FLOP_PER_S[torch.float32]
+    bound_ms = (flops["forward"] + flops["backward"]) / peak * 1e3
+    log(f"[train_attn] a step on {card} (host clock, a device sync after each part, "
+        f"median of 3): forward and loss {split['forward']:.1f} ms "
+        f"({flops['forward'] / 1e12:.3f} TFLOP counted, "
+        f"{flops['forward'] / split['forward'] / 1e9:.1f} TFLOP/s), backward "
+        f"{split['backward']:.1f} ms ({flops['backward'] / 1e12:.3f} TFLOP, "
+        f"{flops['backward'] / split['backward'] / 1e9:.1f} TFLOP/s), optimizer "
+        f"{split['optimizer']:.1f} ms; operations bound {bound_ms:.1f} ms at "
+        f"{peak / 1e12:.0f} TFLOP/s float32")
+
+    # drop-connect is on in train mode: two generator states, two outputs
+    with torch.no_grad():
+        outs = [segmentor(x, train=True, generator=torch.Generator(
+            device=trainer.device).manual_seed(seed))[0][0] for seed in (1, 1, 2)]
+    same = (outs[0] - outs[1]).abs().max().item()
+    differ = (outs[0] - outs[2]).abs().max().item()
+    scale = outs[0].abs().max().item()
+    log(f"[train_attn] drop-connect, one batch in train mode: seeds 1 and 2 differ by "
+        f"{differ:.3e}, seed 1 twice by {same:.3e} (max |logit| {scale:.3f})")
+    if not differ > max(10 * same, 1e-3 * scale):
+        raise AssertionError("drop-connect drew the same masks from two generator states")
+    return train_launches, eval_launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -1414,6 +1593,8 @@ def main(argv=None) -> int:
         deeplab_launches += phase_eval_deeplab(tmp, card)
         torch.cuda.empty_cache()
         deeplab_launches += phase_serve_deeplab(tmp, card)
+        torch.cuda.empty_cache()
+        train_attn_launches, eval_attn_trained_launches = phase_train_attn(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
@@ -1440,6 +1621,8 @@ def main(argv=None) -> int:
         "launches_eval_attn": eval_attn_launches,
         "launches_serve_attn": serve_attn_launches,
         "launches_deeplab": deeplab_launches,
+        "launches_train_attn": train_attn_launches,
+        "launches_eval_attn_trained": eval_attn_trained_launches,
         **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")

@@ -20,11 +20,15 @@ reference's torch keys, and by role
 They take the variables as nested dicts of arrays (numpy, or anything
 ``np.asarray`` reads) and import no JAX.
 
-``gald_flax_from_state_dicts`` and ``deeplab_flax_from_state_dicts`` go the
-other way, for the training tests:
+``gald_flax_from_state_dicts``, ``deeplab_flax_from_state_dicts`` and
+``attn_flax_from_state_dicts`` go the other way, for the training tests:
 the port's tensors by ``state_dict`` key (weights, or gradients by parameter
 name) are laid out as a flax tree, so that loss, gradients and updated
-parameters can be compared leaf by leaf.
+parameters can be compared leaf by leaf.  ``attnwrap_state_dicts_from_flax``
+and ``attnwrap_flax_from_state_dicts`` are the pair for the single-module
+variant: its ``model`` part holds the attn encoder and decoder, under
+``encoder``/``decoder`` scopes in flax and ``encoder.``/``decoder.`` key
+prefixes in torch.
 
 ``load_reference_checkpoint`` reads the model parts of a reference-layout
 ``.pth`` (``{"encoder": sd, "decoder": sd}``, with or without the optimizer
@@ -157,7 +161,22 @@ def attn_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
                                              _ATTN_DECODER_TRANSPOSED)}
 
 
-def _flax_from_state_dict(sd: Mapping, template: Mapping, rules) -> Dict[str, Any]:
+def attnwrap_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
+    """JAX attnwrap variables ``{"model": ...}`` -> ``{"model": state dict}``."""
+    parts = attn_state_dicts_from_flax(_split_scopes(variables["model"]))
+    return {"model": {f"{part}.{key}": value for part, sd in parts.items()
+                      for key, value in sd.items()}}
+
+
+def _split_scopes(variables: Mapping[str, Any]) -> Dict[str, Dict]:
+    """``{collection: {"encoder": t, "decoder": t}}`` ->
+    ``{"encoder": {collection: t}, "decoder": {collection: t}}``."""
+    return {part: {c: tree[part] for c, tree in variables.items() if part in tree}
+            for part in ("encoder", "decoder")}
+
+
+def _flax_from_state_dict(sd: Mapping, template: Mapping, rules,
+                          transposed_conv_paths: Tuple[str, ...] = ()) -> Dict[str, Any]:
     out: Dict[str, Any] = {}
     for collection, leaves in (("params", _PARAM_LEAVES), ("batch_stats", _STAT_LEAVES),
                                ("frozen", _FROZEN_LEAVES)):
@@ -176,7 +195,12 @@ def _flax_from_state_dict(sd: Mapping, template: Mapping, rules) -> Dict[str, An
                 value = value.detach().cpu().numpy()
             arr = np.asarray(value, dtype=np.float32)
             if path[-1] == "kernel":
-                arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
+                prefix = _torch_prefix(path[:-1], rules)
+                if any(re.search(p, prefix) for p in transposed_conv_paths):
+                    # (I, O, kh, kw), flipped back -> flipped (kh, kw, I, O)
+                    arr = np.transpose(arr[:, :, ::-1, ::-1], (2, 3, 0, 1))
+                else:
+                    arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
             node = tree
             for name in path[:-1]:
                 node = node.setdefault(name, {})
@@ -212,6 +236,32 @@ def deeplab_flax_from_state_dicts(tensors: Mapping[str, Mapping],
             "classifier": _flax_from_state_dict(tensors["classifier"],
                                                 template["classifier"],
                                                 _ASPP_CLASSIFIER_RULES)}
+
+
+def attn_flax_from_state_dicts(tensors: Mapping[str, Mapping],
+                               template: Mapping[str, Any]) -> Dict[str, Dict]:
+    """The inverse of ``attn_state_dicts_from_flax``, as
+    ``gald_flax_from_state_dicts`` is for GALD (transposed-conv kernels
+    flipped and transposed back)."""
+    return {"encoder": _flax_from_state_dict(tensors["encoder"], template["encoder"],
+                                             _ATTN_ENCODER_RULES),
+            "decoder": _flax_from_state_dict(tensors["decoder"], template["decoder"],
+                                             _ATTN_DECODER_RULES, _ATTN_DECODER_TRANSPOSED)}
+
+
+def attnwrap_flax_from_state_dicts(tensors: Mapping[str, Mapping],
+                                   template: Mapping[str, Any]) -> Dict[str, Dict]:
+    """The inverse of ``attnwrap_state_dicts_from_flax``: ``{"model":
+    {torch key: array}}`` -> ``{"model": {collection: {"encoder": ...,
+    "decoder": ...}}}``."""
+    parts = {part: {k[len(part) + 1:]: v for k, v in tensors["model"].items()
+                    if k.startswith(part + ".")} for part in ("encoder", "decoder")}
+    trees = attn_flax_from_state_dicts(parts, _split_scopes(template["model"]))
+    model: Dict[str, Dict] = {}
+    for part, tree in trees.items():
+        for collection, value in tree.items():
+            model.setdefault(collection, {})[part] = value
+    return {"model": model}
 
 
 def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -8,9 +8,9 @@
         -cfg configs/attn_src_kvasir.yaml -c renders/kvasir.json \\
         MODEL.FUSED_MBCONV True resume <weights.pth>
 
-Serves every family the port builds (deeplab, gald, attn); ``-c`` names the
-render config whose palette colours the masks.  Runs on the CUDA card unless
-``MODEL.DEVICE cpu`` is given.
+Serves every family the port builds (deeplab, gald, attn, attnwrap); ``-c``
+names the render config whose palette colours the masks.  Runs on the CUDA
+card unless ``MODEL.DEVICE cpu`` is given.
 """
 
 from __future__ import annotations

@@ -4,9 +4,12 @@
         -cfg configs/deeplabv2_r101_src.yaml DATASETS.SOURCE_TRAIN synthetic_train
     python -m rnd_semantic_segmentation_torch.cli.train_src \\
         -cfg configs/gald_src.yaml DATASETS.SOURCE_TRAIN synthetic_train
+    python -m rnd_semantic_segmentation_torch.cli.train_src \\
+        -cfg configs/attn_src_kvasir.yaml DATASETS.SOURCE_TRAIN synthetic_train
 
-The model family (deeplab or gald) comes from MODEL.NAME through the
-registry.  Runs on the CUDA card unless ``MODEL.DEVICE cpu`` is given.
+The model family (deeplab, gald, attn or attnwrap) comes from MODEL.NAME
+through the registry.  Runs on the CUDA card unless ``MODEL.DEVICE cpu`` is
+given.
 """
 
 from __future__ import annotations

@@ -1,10 +1,20 @@
 """Augmentation pipeline factory (counterpart of the JAX package's data/augment.py).
 
-The port has the transforms of ``AUG.NAME aspp`` (train and test), ``gald``
-and ``none`` (the identity), and the test transform of ``AUG.NAME attn``
-(the identity too: the dataset resizes, and blur, rotation, jitter and flips
-are training augmentations).  attn's training pipeline and the pra pipeline
-come with their slices.
+The port has the transforms of ``AUG.NAME aspp`` and ``attn`` (train and
+test), and ``gald`` and ``none`` (the identity).  The pra pipeline comes with
+its slice.
+
+``attn`` in train mode (the reference's albumentations pipeline, rebuilt on
+PIL and numpy): with probability AUG.PROB at all, then each with its own
+probability, a motion blur (the mean of k in {3, 5, 7} copies of the image
+rolled along one of four directions; float stays float, uint8 stays uint8),
+a rotation by an angle in [-90, 90] degrees (the image bilinear through
+PIL, which returns uint8; the label nearest, through float32),
+``ColorJitter(0.2, 0.2, 0.2, 0.2)`` (uint8 out), and a flip by the
+albumentations codes 0 (vertical), 1 (horizontal) and -1 (both).  The
+dtypes are the JAX package's: the collate divides a uint8 batch by 255 and
+passes a float one through.  In test mode ``attn`` is the identity: the
+dataset resizes.
 
 ``aspp`` in train mode: ColorJitter (source domain only), then ``Resize`` to
 the domain's train size when INPUT.INPUT_SCALES_TRAIN is (1, 1) or else
@@ -21,7 +31,29 @@ from __future__ import annotations
 import random
 from typing import Optional
 
+import numpy as np
+from PIL import Image
+
 from . import transforms as T
+
+
+def _motion_blur(image: np.ndarray, ksize: int, rng: random.Random) -> np.ndarray:
+    """The mean of ``ksize`` copies of ``image`` rolled by -k//2..k//2 pixels
+    along a direction drawn from ``rng`` (rows, columns, or a diagonal)."""
+    arr = image.astype(np.float32)
+    direction = rng.choice(["h", "v", "d1", "d2"])
+    acc = np.zeros_like(arr)
+    offs = range(-(ksize // 2), ksize // 2 + 1)
+    for o in offs:
+        if direction == "h":
+            acc += np.roll(arr, o, axis=1)
+        elif direction == "v":
+            acc += np.roll(arr, o, axis=0)
+        elif direction == "d1":
+            acc += np.roll(np.roll(arr, o, axis=0), o, axis=1)
+        else:
+            acc += np.roll(np.roll(arr, o, axis=0), -o, axis=1)
+    return (acc / len(offs)).astype(image.dtype)
 
 
 class Augmenter:
@@ -40,11 +72,33 @@ class Augmenter:
             return self.aspp_trans()
         if name == "attn":
             if self.mode == "train":
-                raise NotImplementedError(
-                    "AUG.NAME attn in train mode (motion blur, rotation, jitter, "
-                    "flips) comes with the attn training slice")
+                return self.attn_trans
             return lambda image, label: (image, label)
         raise NotImplementedError(f"AUG.NAME {name!r} is not ported yet")
+
+    def attn_trans(self, image, label):
+        """One image and label through the train-mode ``attn`` pipeline."""
+        aug, rng = self.cfg.AUG, self.rng
+        image, label = np.asarray(image), np.asarray(label)
+        if rng.random() > aug.PROB:
+            return image, label
+        if rng.random() < aug.BLUR_PROB:
+            image = _motion_blur(image, rng.choice([3, 5, 7]), rng)
+        if rng.random() < aug.ROTATE_PROB:
+            angle = rng.uniform(-90, 90)
+            im = T._as_pil(image).rotate(angle, Image.BILINEAR)
+            lb = Image.fromarray(label.astype(np.float32)).rotate(angle, Image.NEAREST)
+            image, label = np.asarray(im), np.asarray(lb).astype(label.dtype)
+        if rng.random() < aug.JITTER_PROB:
+            im, _ = T.ColorJitter(0.2, 0.2, 0.2, 0.2, rng=rng)(image, None)
+            image = np.asarray(im)
+        if rng.random() < aug.FLIP_PROB:
+            code = rng.choice([0, 1, -1])
+            if code in (0, -1):
+                image, label = image[::-1].copy(), label[::-1].copy()
+            if code in (1, -1):
+                image, label = image[:, ::-1].copy(), label[:, ::-1].copy()
+        return image, label
 
     def aspp_trans(self):
         cfg, rng = self.cfg, self.rng

@@ -9,8 +9,8 @@ One loop for every ported family; the families differ in the probability head:
     take one image a batch and raise ``ValueError`` on more;
   * gald — decoder ``out2`` -> bilinear (align_corners=False) to the label
     size -> softmax over classes;
-  * attn — ``sigmoid(out_0)`` in float32, one channel per class; the mask is
-    its argmax.
+  * attn and attnwrap — ``sigmoid(out_0)`` in float32, one channel per
+    class; the mask is its argmax.
 
 ``Tester(cfg, logger)`` is what the serving daemon builds: the model on its
 device, the checkpoint loader for reference-layout ``.pth`` files and the
@@ -110,7 +110,7 @@ class Tester:
             outputs, _ = self.segmentor(x)
             out = resize_bilinear(outputs[-1].float(), label_size, align_corners=False)
             return torch.softmax(out, dim=1)
-        if fam == "attn":
+        if fam in ("attn", "attnwrap"):
             outputs, _ = self.segmentor(x)
             return torch.sigmoid(outputs[0].float())
         raise NotImplementedError(fam)

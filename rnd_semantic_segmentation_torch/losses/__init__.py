@@ -1,7 +1,10 @@
 """Losses (counterpart of the JAX package's losses/__init__.py), on NCHW logits.
 
-This slice has ``cross_entropy``, the loss of the gald and deeplab families;
-the Tversky, BCE, Dice and structure losses come with their families.
+``cross_entropy`` is the loss of the gald and deeplab families;
+``bce_with_logits`` and ``tversky_loss`` make up the attn family's (Tversky
+with alpha 0.7 and eps 1, and BCE, at each of its five scales).  The Dice and
+structure losses come with their families.  Every reduction is in float32,
+whatever the type of the logits.
 """
 
 from __future__ import annotations
@@ -24,3 +27,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                             reduction="sum")
     count = (labels != ignore_index).sum().clamp(min=1)
     return total / count
+
+
+def bce_with_logits(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """Mean sigmoid BCE over every element; ``label`` is a float target of
+    ``pred``'s shape (soft at the edges of a resized one-hot mask)."""
+    return F.binary_cross_entropy_with_logits(pred.float(), label.float())
+
+
+def tversky_loss(pred: torch.Tensor, label: torch.Tensor, alpha: float = 0.7,
+                 eps: float = 1.0) -> torch.Tensor:
+    """Tversky loss per class over (B, H, W), averaged over the classes.
+
+    pred ``[B,C,H,W]`` logits, label ``[B,C,H,W]`` one-hot (or its resized,
+    soft version).  ``1 - mean_c (tp + eps) / (tp + alpha*fn + (1-alpha)*fp + eps)``
+    with the sigmoid probabilities, so false negatives weigh ``alpha``.
+    """
+    probs = torch.sigmoid(pred.float())
+    label = label.float()
+    dims = (0, 2, 3)
+    tp = (probs * label).sum(dims)
+    fn = (label * (1 - probs)).sum(dims)
+    fp = (probs * (1 - label)).sum(dims)
+    return 1.0 - ((tp + eps) / (tp + alpha * fn + (1 - alpha) * fp + eps)).mean()

@@ -8,6 +8,10 @@ JAX package's models/attn_unet.py), on NCHW tensors.
     blocks of two conv3x3 + BN + LeakyReLU, a 1x1 head per level: five
     outputs at scales (1, 1/2, 1/4, 1/8, 1/16).
 
+``AttnEfficientNetUnet`` is the single-module variant (the ``attnwrap``
+family): the encoder and the decoder under one module, so its keys are the
+attn family's two parts with ``encoder.`` and ``decoder.`` in front.
+
 Submodule names give the reference's ``state_dict`` keys: ``attn_mid.conv_g``,
 ``mid_upsampler``, ``ups_1..4``, ``decode_1..4.{0,1,3,4}``, ``out_0..4.0``.
 The reference also defines a ``decode_0`` that its forward never calls; it is
@@ -16,12 +20,13 @@ left out here, and a checkpoint's ``decode_0`` keys are ignored on loading.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..ops import resize_bilinear
+from .efficientnet import EfficientNetEncoder
 from .layers import BatchNorm, Conv2d, ConvTranspose2d
 
 _DEPTH_MAP = {
@@ -102,3 +107,18 @@ class AttnDecoder(nn.Module):
         up_1 = self.ups_1(decode_1)
         return (self.out_0(up_1), self.out_1(decode_1), self.out_2(decode_2),
                 self.out_3(decode_3), self.out_4(decode_4))
+
+
+class AttnEfficientNetUnet(nn.Module):
+    """``decoder(encoder(x))`` as one module (the reference's
+    ``AttnEfficientNetUnet``, trained by its ``AttnWrapTrainer``)."""
+
+    def __init__(self, backbone_name: str = "efficientnet-b2", num_classes: int = 2,
+                 fused_mbconv: bool = False):
+        super().__init__()
+        self.encoder = EfficientNetEncoder(backbone_name, fused_mbconv=fused_mbconv)
+        self.decoder = AttnDecoder(backbone_name, num_classes)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, ...]:
+        return self.decoder(self.encoder(x, generator))

@@ -3,11 +3,14 @@
 MODEL.NAME is ``<family>_<backbone>``.  The port builds the ``deeplab``
 family with a ResNet backbone (``deeplab_resnet{18,34,50,101,152}``: dilated
 ResNet + ASPP-V2, FrozenBN when ``MODEL.FREEZE_BN``), the ``gald`` family
-(HarDNet68 + GCPA-CC) and the ``attn`` family (EfficientNet-B0..B4 encoder +
-attention-gated UNet decoder); ``deeplab_vgg16`` and every other family raise
-NotImplementedError until their slices are ported.  ``MODEL.FUSED_MBCONV``
-reaches the attn encoder as a constructor argument: in eval mode its eligible
-MBConv blocks then run the fused kernel of ops/mbconv.py.
+(HarDNet68 + GCPA-CC), the ``attn`` family (EfficientNet-B0..B4 encoder +
+attention-gated UNet decoder, parts ``encoder`` and ``decoder``) and its
+single-module variant ``attnwrap`` (part ``model``); ``deeplab_vgg16`` and
+every other family raise NotImplementedError until their slices are ported.
+``MODEL.FUSED_MBCONV`` reaches the attn encoder as a constructor argument: in
+eval mode its eligible MBConv blocks then run the fused kernel of
+ops/mbconv.py.  ``MODEL.FREEZE_BN`` reaches the ResNet backbones only, as in
+the JAX package: the attn norms train on batch statistics.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 from torch import nn
 
 from .aspp import ASPPClassifierV2, ResNetFeatureExtractor
-from .attn_unet import _DEPTH_MAP, AttnDecoder
+from .attn_unet import _DEPTH_MAP, AttnDecoder, AttnEfficientNetUnet
 from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
 from .layers import FrozenBatchNorm2d
@@ -80,25 +83,30 @@ def build_segmentor(cfg) -> SegmentorSpec:
             lr_mults={"encoder": 1.0, "decoder": 10.0},
             optimizer="adam", ckpt_prefix="Gald", disc_tap="hardnetout3",
         )
-    if family == "attn":
+    if family in ("attn", "attnwrap"):
         bb = backbone or "efficientnet-b2"
         if bb not in _DEPTH_MAP:
-            raise NotImplementedError(f"attn backbone {bb!r}: one of {sorted(_DEPTH_MAP)}")
+            raise NotImplementedError(f"{family} backbone {bb!r}: one of "
+                                      f"{sorted(_DEPTH_MAP)}")
+        fused = bool(cfg.MODEL.FUSED_MBCONV)
+        if family == "attnwrap":
+            return SegmentorSpec(
+                family=family, backbone=bb,
+                modules={"model": AttnEfficientNetUnet(
+                    bb, cfg.MODEL.NUM_CLASSES, fused_mbconv=fused)},
+                lr_mults={"model": 1.0},
+                optimizer="adam", ckpt_prefix="AttnWrap", disc_tap="reduction_5",
+            )
         return SegmentorSpec(
             family=family, backbone=bb,
-            modules={"encoder": EfficientNetEncoder(
-                         bb, fused_mbconv=bool(cfg.MODEL.FUSED_MBCONV)),
+            modules={"encoder": EfficientNetEncoder(bb, fused_mbconv=fused),
                      "decoder": AttnDecoder(bb, num_classes=cfg.MODEL.NUM_CLASSES)},
             lr_mults={"encoder": 1.0, "decoder": 10.0},
             optimizer="adam", ckpt_prefix="Attn", disc_tap="reduction_5",
         )
-    if family == "attnwrap":
-        raise NotImplementedError(
-            "model family 'attnwrap' (the single-module attn variant) comes with "
-            "the attn training slice")
     raise NotImplementedError(
         f"model family {family!r} is not ported yet (the port builds 'deeplab', "
-        f"'gald' and 'attn')")
+        f"'gald', 'attn' and 'attnwrap')")
 
 
 @torch.no_grad()

@@ -7,7 +7,14 @@ The behaviour of ``efficientnet_pytorch.EfficientNet`` with
 ``reduction_5`` is the swish-activated head conv output (1280*width channels
 at /32).  MBConv: expand 1x1 -> depthwise (TF-SAME padding) -> squeeze-excite
 (reduction on the pre-expansion channels) -> project 1x1, with the identity
-added on stride-1 blocks of equal width.  BN eps 1e-3, momentum 0.01.
+added on stride-1 blocks of equal width.  BN eps 1e-3, momentum 0.01 (torch's
+convention: ``new = 0.99*old + 0.01*batch``, the batch variance unbiased).
+
+In train mode an identity block applies per-sample drop-connect (stochastic
+depth) at its rate ``drop_connect_rate * idx / len(blocks)``: each sample's
+branch is kept with probability ``keep = 1 - rate`` and then scaled by
+``1/keep``, drawn from the ``torch.Generator`` the caller passes down through
+``forward``; there is no module-level random state.
 
 With ``fused_mbconv`` an eligible block (eval mode, expansion, stride 1) runs
 its expand conv, both BatchNorms, both swishes and the depthwise conv as one
@@ -21,7 +28,7 @@ changed in place after construction are honoured.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -176,7 +183,10 @@ class MBConvBlock(nn.Module):
             x = swish(self._bn0(self._expand_conv(x)))
         return swish(self._bn1(self._depthwise_conv(x)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` feeds drop-connect in train mode; a block that drops
+        (train mode, rate > 0, identity) raises without one."""
         inputs = x
         x = self.segment_fused(x) if self.takes_fused_path(x) else self.segment_unfused(x)
         if self.se_ratio > 0:
@@ -186,8 +196,13 @@ class MBConvBlock(nn.Module):
         x = self._bn2(self._project_conv(x))
         if self.stride == 1 and self.in_filters == self.out_filters:
             if self.training and self.drop_connect_rate > 0:
-                raise NotImplementedError(
-                    "drop-connect (stochastic depth) comes with the attn training slice")
+                if generator is None:
+                    raise ValueError("drop-connect in train mode draws from an explicit "
+                                     "torch.Generator; pass generator=")
+                keep = 1.0 - self.drop_connect_rate
+                mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                                  device=x.device) < keep
+                x = x * mask.to(x.dtype) / keep
             x = x + inputs
         return x
 
@@ -212,12 +227,14 @@ class EfficientNet(nn.Module):
         self._conv_head = _SameConv(blocks[-1][4], head, 1)
         self._bn1 = bn(head)
 
-    def extract_endpoints(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def extract_endpoints(self, x: torch.Tensor,
+                          generator: Optional[torch.Generator] = None
+                          ) -> Dict[str, torch.Tensor]:
         x = swish(self._bn0(self._conv_stem(x)))
         endpoints: Dict[str, torch.Tensor] = {}
         prev = x
         for block in self._blocks:
-            x = block(prev)
+            x = block(prev, generator)
             if prev.shape[2] > x.shape[2]:
                 endpoints[f"reduction_{len(endpoints) + 1}"] = prev
             prev = x
@@ -244,5 +261,6 @@ class EfficientNetEncoder(nn.Module):
     def blocks(self) -> nn.ModuleList:
         return self.encoder._blocks
 
-    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        return self.encoder.extract_endpoints(x)
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
+        return self.encoder.extract_endpoints(x, generator)

@@ -3,7 +3,8 @@ train/segmentor.py).  deeplab: ``classifier(feature_extractor(x),
 label_size)``, one output at the label size, tapped at the backbone
 features.  gald: ``decoder(x, encoder(x))``, whose discriminator tap is the
 last encoder tap.  attn: ``decoder(encoder(x))`` with five outputs
-at scales 1 to 1/16, tapped at ``reduction_5``; eval only so far.
+at scales 1 to 1/16, tapped at ``reduction_5``.  attnwrap: the same forward
+as one ``model`` part, with no tap (``None``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class Segmentor(nn.Module):
         self.parts = nn.ModuleDict(spec.modules)
 
     def forward(self, x: torch.Tensor, label_size: Optional[Tuple[int, int]] = None,
-                train: bool = False):
+                train: bool = False, generator: Optional[torch.Generator] = None):
         """Returns (outputs tuple, disc_tap feature); x is NCHW float.
 
         ``train=True`` puts every BatchNorm on batch statistics and updates
@@ -32,12 +33,10 @@ class Segmentor(nn.Module):
         ``FrozenBatchNorm2d`` applies its buffers either way.
         ``label_size`` is for the deeplab head, which resizes to it (the input
         size when None); the gald and attn heads are at the input size.
+        ``generator`` (on x's device) feeds the attn encoder's drop-connect,
+        which in train mode needs one; the other families take no draws.
         """
         fam = self.spec.family
-        if fam == "attn" and train:
-            raise NotImplementedError(
-                "attn training (drop-connect, Tversky/BCE losses, cosine warm-up) "
-                "comes with the attn training slice; the port evaluates and serves it")
         if self.training != train:
             self.train(train)
         if fam == "deeplab":
@@ -49,6 +48,8 @@ class Segmentor(nn.Module):
             outs = self.parts["decoder"](x, taps)
             return outs, taps[3]
         if fam == "attn":
-            endpoints = self.parts["encoder"](x)
+            endpoints = self.parts["encoder"](x, generator)
             return self.parts["decoder"](endpoints), endpoints["reduction_5"]
+        if fam == "attnwrap":
+            return self.parts["model"](x, generator), None
         raise NotImplementedError(fam)

@@ -7,7 +7,11 @@ Loss wiring per family:
   * deeplab: CE(ignore=255) on the ASPP output at the label size.
   * gald: deep supervision, CE(ignore=255) on the four heads weighted
     1.0/0.8/0.6/0.4 on (out2, out3, out4, out5).
-  * pranet, attn: with their slices of the port.
+  * attn, attnwrap: the sum over the five outputs (scales 1 to 1/16) of
+    0.5*Tversky + 0.5*BCE against the one-hot labels resized bilinearly
+    (align_corners=False) to each output's size; an ignored pixel (255) has
+    a one-hot row of zeros, as ``jax.nn.one_hot`` gives it.
+  * pranet: with its slice of the port.
 
 LR schedules follow the reference trainers: poly per iteration for deeplab and
 gald, per-epoch warm-up and cosine for pranet and attn whatever
@@ -16,11 +20,12 @@ SOLVER.LR_METHOD says.  Head parts get their 10x through ``spec.lr_mults``.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
 from .. import losses
+from ..ops import resize_bilinear
 from .schedules import (
     gradual_warmup_cosine_lr,
     poly_lr,
@@ -45,10 +50,27 @@ def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callabl
                     + losses.cross_entropy(out4, label, ignore_label) * 0.6
                     + losses.cross_entropy(out5, label, ignore_label) * 0.4)
         return loss_fn
-    if fam in ("pranet", "attn", "attnwrap"):
-        raise NotImplementedError(
-            f"the {fam} loss comes with the {fam} slice of the port")
+    if fam in ("attn", "attnwrap"):
+        def loss_fn(outputs, label):
+            classes = torch.arange(num_classes, device=label.device).view(1, -1, 1, 1)
+            onehot = (label.long().unsqueeze(1) == classes).float()
+            total = torch.zeros((), dtype=torch.float32, device=label.device)
+            for out in outputs:  # scales 1, 1/2, 1/4, 1/8, 1/16
+                scaled = resize_bilinear(onehot, out.shape[-2:])
+                total = total + 0.5 * losses.tversky_loss(out, scaled) \
+                              + 0.5 * losses.bce_with_logits(out, scaled)
+            return total
+        return loss_fn
+    if fam == "pranet":
+        raise NotImplementedError("the pranet loss comes with the pranet slice of the port")
     raise NotImplementedError(fam)
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of one step's drop-connect draws: a pure function of
+    ``(seed, step)``, as ``jax.random.fold_in(key, step)`` is in the JAX
+    step, so a resumed run draws what the uninterrupted one drew."""
+    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
 
 
 def make_lr_schedule(spec, cfg, steps_per_epoch: int) -> Callable:
@@ -83,7 +105,7 @@ def make_lr_schedule(spec, cfg, steps_per_epoch: int) -> Callable:
 
 
 def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
-                        state: TrainState) -> Callable:
+                        state: TrainState, seed: Optional[int] = None) -> Callable:
     """Returns ``step(batch, epoch0) -> {"loss", "lr"}``; it updates the
     segmentor's parameters and BN statistics, ``state.optimizers`` and
     ``state.step`` in place.
@@ -91,6 +113,11 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
     batch: ``{"image": [B,H,W,3] float, "label": [B,H,W] int}`` tensors on the
     segmentor's device, in the loader's NHWC layout.  The compute type is
     float32 whatever MODEL.DTYPE says.
+
+    The step owns a ``torch.Generator`` on the segmentor's device, which the
+    attn families' drop-connect draws from: it is seeded with
+    ``step_seed(seed, state.step)`` at the start of every step (``seed``
+    defaults to ``cfg.SEED``, as the JAX step's ``base_rng`` does).
     """
     if str(cfg.SOLVER.REMAT).lower() not in ("none", "", "0", "false"):
         raise NotImplementedError(
@@ -104,6 +131,9 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
     lr_sched = make_lr_schedule(spec, cfg, steps_per_epoch)
     grad_clip = cfg.SOLVER.GRAD_CLIP or (0.5 if spec.family == "pranet" else 0.0)
     accum = max(int(cfg.SOLVER.ACCUM_STEPS), 1)
+    seed = cfg.SEED if seed is None else seed
+    device = next(segmentor.parameters()).device
+    generator = torch.Generator(device=device)
 
     def step_fn(batch: Dict[str, torch.Tensor], epoch0) -> Dict[str, float]:
         x = batch["image"].float().permute(0, 3, 1, 2).contiguous()
@@ -114,9 +144,11 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
         # one to the next (a bigger batch at 1/accum of the activation memory)
         b = x.shape[0] // accum
         total = torch.zeros((), dtype=torch.float32, device=x.device)
+        generator.manual_seed(step_seed(seed, state.step))
         for i in range(accum):
             xs, ys = x[i * b:(i + 1) * b], label[i * b:(i + 1) * b]
-            outputs, _ = segmentor(xs, label_size=ys.shape[1:3], train=True)
+            outputs, _ = segmentor(xs, label_size=ys.shape[1:3], train=True,
+                                   generator=generator)
             loss = loss_fn(outputs, ys) / accum
             loss.backward()
             total += loss.detach()

@@ -8,7 +8,9 @@ Loop semantics kept from the reference trainers:
   * a checkpoint every SOLVER.CHECKPOINT_PERIOD epochs, ``{Prefix}-{epoch}.pth``,
     pruned to SOLVER.KEEP_CHECKPOINTS;
   * the loss and LR series dumped to ``<family>_chart_params.json``;
-  * resume from ``cfg.resume`` (a file, or ``latest`` in OUTPUT_DIR).
+  * resume from ``cfg.resume`` (a file, or ``latest`` in OUTPUT_DIR);
+  * the step's drop-connect generator is seeded from ``SEED + 1``, as the
+    JAX trainer's ``base_rng`` is, and reseeded per step from the step count.
 
 One device, no mesh.  The adversarial trainer, PraNet's multi-scale steps and
 the knobs that raise below come with their slices.
@@ -85,7 +87,7 @@ class Trainer:
 
         self.steps_per_epoch = len(train_loader)
         self.step_fn = make_src_train_step(self.segmentor, cfg, self.steps_per_epoch,
-                                           self.state)
+                                           self.state, seed=cfg.SEED + 1)
 
     def _peak_memory_mb(self) -> float:
         if self.device.type != "cuda":

@@ -328,12 +328,24 @@ def test_whole_forward_fused_and_unfused(jax_forward, port_tester, fused_tester,
     _assert_close_to_max(fused_tap.numpy(), tap.numpy(), 1e-5)
 
 
-def test_attn_training_waits_for_its_slice(port_tester, images):
-    with pytest.raises(NotImplementedError, match="training slice"):
-        port_tester.segmentor(_nchw(images), train=True)
-    assert not port_tester.segmentor.training
-    with pytest.raises(NotImplementedError, match="attnwrap"):
-        build_segmentor(port_cfg("MODEL.NAME", "attnwrap_efficientnet-b0"))
+def test_attn_training_waits_for_its_slice(images):
+    """Train mode runs (drop-connect from an explicit generator) and moves
+    every BatchNorm's running statistics; attnwrap builds; a backbone other
+    than EfficientNet-B0..B4 still raises."""
+    seg = Segmentor(build_segmentor(port_cfg()), NC)
+    randomize_weights_(seg, seed=6)
+    norms = [m for m in seg.modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    before = [(m.running_mean.clone(), m.running_var.clone()) for m in norms]
+    with torch.no_grad():
+        outs, tap = seg(_nchw(images), train=True, generator=torch.Generator().manual_seed(0))
+    assert seg.training and len(outs) == 5 and tap.shape == (2, 1280, 2, 2)
+    assert all(torch.isfinite(o).all() for o in outs)
+    assert len(norms) == 57 and all(
+        not torch.equal(m.running_mean, mean) and not torch.equal(m.running_var, var)
+        for m, (mean, var) in zip(norms, before))
+    spec = build_segmentor(port_cfg("MODEL.NAME", "attnwrap_efficientnet-b0"))
+    assert (spec.family, list(spec.modules), spec.ckpt_prefix) == ("attnwrap", ["model"],
+                                                                   "AttnWrap")
     with pytest.raises(NotImplementedError):
         build_segmentor(port_cfg("MODEL.NAME", "attn_resnet50"))
 

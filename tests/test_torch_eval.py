@@ -255,8 +255,9 @@ def test_what_waits_raises(workdir, monkeypatch):
     quant = load_cfg(_port_args(workdir, workdir / "raises", "TEST.QUANT", "int8"))
     with pytest.raises(NotImplementedError, match="QUANT"):
         test_cli.make_tester(quant, RENDER, logger=log).test()
-    with pytest.raises(NotImplementedError, match="train"):
-        Augmenter(cfg, mode="train").build_transform()
+    pra = load_cfg(_port_args(workdir, workdir / "raises", "AUG.NAME", "pra"))
+    with pytest.raises(NotImplementedError, match="pra"):
+        Augmenter(pra, mode="train").build_transform()
     image = np.zeros((4, 4, 3), np.uint8)
     assert Augmenter(cfg, mode="test").build_transform()(image, None)[0] is image
 
