@@ -74,15 +74,37 @@ no result line on any failure.  Phases, each of which raises:
               train-mode outputs; then the checkpoint it wrote through the
               test CLI's function as in eval_attn (17 launches per fused
               forward, the fused and unfused confusion matrices within the
-              same tolerance).
-No hand kernel lies on the DeepLab path or on the attn training path: their
-phases check that none of the three launched.
+              same tolerance);
+ 12. train_fada_deeplab  the FADA main path: configs/deeplabv2_r101_adv.yaml
+              (DeepLabV2-ResNet101, FrozenBN, 19 classes, full width and depth,
+              seeded weights; D sized from the 2048-channel tap) through the
+              adversarial CLI's parser and ``FadaTrainer``: 4 synthetic source
+              images at 1280x720 and 4 shifted target images at 1024x512 a
+              step, SGD at 2.5e-4 with the classifier at 10x, D on Adam at
+              1e-4, poly LR, for 6 steps; the four losses must be finite,
+              every parameter of both parts and of D move, no hand kernel
+              launch; a step split into the generator's forwards and backward,
+              the segmentor's update, D's forwards and backward and D's
+              update; then its AsppFada-1.pth through the test CLI's
+              function on 4 synthetic images at 1024x512;
+ 13. train_fada_gald  configs/gald_adv.yaml at full width: 2 + 2 images a
+              step at 1280x720 and 1024x512, 4 steps; kernel #1 must launch 4
+              times a step (both domains) and kernel #2 twice (the source);
+ 14. train_fada_attn  configs/attn_adv_kvasir.yaml: B2, 2 classes, 10 + 10
+              images at 512x512 a step, drop-connect and the attn
+              augmentation on, MODEL.FUSED_MBCONV on, 4 steps; no hand kernel;
+ 15. fada_vgg16  the train_fada_deeplab path with MODEL.NAME deeplab_vgg16, 2
+              steps, after the seeded VGG16's logits at 1280x720 (finite, of
+              order one: no norm damps them).
+No hand kernel lies on the DeepLab path or on the attn training path, FADA's
+included: their phases check that none of the three launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
 phases (kernels, kernels_bwd, kernels_mbconv, serve, train, eval_attn,
-serve_attn, train_deeplab, eval_deeplab, serve_deeplab, train_attn; device
-and build always run) and prints no result lines: an aid while working on
+serve_attn, train_deeplab, eval_deeplab, serve_deeplab, train_attn,
+train_fada_deeplab, train_fada_gald, train_fada_attn, fada_vgg16; device and
+build always run) and prints no result lines: an aid while working on
 one path.
 """
 
@@ -109,7 +131,7 @@ import torch
 
 from rnd_semantic_segmentation_torch.ckpt.torch_import import save_reference_checkpoint
 from rnd_semantic_segmentation_torch.cli import test as test_cli
-from rnd_semantic_segmentation_torch.cli import train_src
+from rnd_semantic_segmentation_torch.cli import train_adv, train_src
 from rnd_semantic_segmentation_torch.cli.common import load_cfg
 from rnd_semantic_segmentation_torch.cli.serve import build_parser
 from rnd_semantic_segmentation_torch.eval.tester import Tester
@@ -181,6 +203,19 @@ DEEPLAB_EVAL_IMAGES = 32
 ATTN_TRAIN_GEOMETRY = (ATTN_MODEL, 2, 20, (ATTN_SIZE, ATTN_SIZE), "attn", (0.7,) * 5,
                        1e-3, 1e-4)
 ATTN_TRAIN_STEPS = 6
+# the FADA paths, as (MODEL.NAME, NUM_CLASSES, SOLVER.BATCH_SIZE, SOURCE and
+# TARGET_INPUT_SIZE_TRAIN, BASE_LR, BASE_LR_D) of configs/deeplabv2_r101_adv.yaml
+# (and with MODEL.NAME deeplab_vgg16), gald_adv.yaml and attn_adv_kvasir.yaml;
+# each step takes BATCH_SIZE // 2 images of each domain
+DEEPLAB_FADA_GEOMETRY = ("deeplab_resnet101", 19, 8, (TRAIN_W, TRAIN_H), (SERVE_W, SERVE_H),
+                         2.5e-4, 1e-4)
+VGG_FADA_GEOMETRY = ("deeplab_vgg16",) + DEEPLAB_FADA_GEOMETRY[1:]
+GALD_FADA_GEOMETRY = ("gald_hardnet68", 19, 5, (TRAIN_W, TRAIN_H), (SERVE_W, SERVE_H),
+                      0.5e-4, 1e-4)
+ATTN_FADA_GEOMETRY = (ATTN_MODEL, 2, 20, (ATTN_SIZE, ATTN_SIZE), (ATTN_SIZE, ATTN_SIZE),
+                      1e-3, 1e-4)
+FADA_STEPS = {"deeplab": 6, "gald": 4, "attn": 4, "vgg16": 2}
+FADA_EVAL_IMAGES = 4
 # the card against the CPU: a seeded deeplab_resnet18 at 64x64, logits within
 # this share of their largest magnitude (float32 sums in other orders through
 # 20 convolutions; cuDNN without TF32)
@@ -998,13 +1033,14 @@ def _worst_leaf(grads, refs):
     return worst, worst_name
 
 
-def _report_steps(tag: str, trainer, card: str, peak_mib: float) -> float:
+def _report_steps(tag: str, trainer, card: str, peak_mib: float, batch: int = 0) -> float:
     """Logs ms a step (the median after the first, which warms cuDNN up),
-    images/s, the data share and the peak memory; returns the ms a step."""
+    images/s (``batch`` images a step, SOLVER.BATCH_SIZE by default), the
+    data share and the peak memory; returns the ms a step."""
     times = trainer.meters.meters["time"].series[1:]
     waits = trainer.meters.meters["data"].series[1:]
     step_ms = float(np.median(times)) * 1e3
-    batch = trainer.cfg.SOLVER.BATCH_SIZE
+    batch = batch or trainer.cfg.SOLVER.BATCH_SIZE
     log(f"[{tag}] on {card}: {step_ms:.1f} ms/step of {batch} (median of steps "
         f"2..{trainer.state.step}; first step "
         f"{trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
@@ -1560,6 +1596,276 @@ def phase_train_attn(tmp: str, card: str):
     return train_launches, eval_launches
 
 
+def _fada_opts(config: str, out_dir: str, *more):
+    return ["-cfg", os.path.join(HERE, "configs", config),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train",
+            "DATASETS.TARGET_TRAIN", "synthetic_shift_train",
+            "SOLVER.EPOCHS", "1", "OUTPUT_DIR", out_dir, *more]
+
+
+def _run_fada(tag: str, tmp: str, card: str, config: str, geometry: tuple, steps: int,
+              *more):
+    """One epoch of ``steps`` FADA steps through ``cli.train_adv``'s parser and
+    ``FadaTrainer`` from seeded weights: the synthetic source and its shifted
+    target, SOLVER.BATCH_SIZE // 2 images of each a step.  Checks the
+    config's geometry (MODEL.NAME, NUM_CLASSES, BATCH_SIZE, the source and
+    target sizes, BASE_LR, BASE_LR_D), that the four losses are finite and
+    that every parameter of every segmentor part and of D moved.  The kernel
+    counts are set to 0 just before the run; the caller reads them after."""
+    from rnd_semantic_segmentation_torch.train.fada import DISC_PART
+
+    out_dir = os.path.join(tmp, tag)
+    half = geometry[2] // 2
+    cfg = load_cfg(train_adv.build_parser().parse_args(_fada_opts(
+        config, out_dir, "DATASETS.SYNTHETIC_LENGTH", str(half * steps), *more)))
+    got = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
+           tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN), tuple(cfg.INPUT.TARGET_INPUT_SIZE_TRAIN),
+           cfg.SOLVER.BASE_LR, cfg.SOLVER.BASE_LR_D)
+    if got != geometry:
+        raise AssertionError(f"configs/{config} gives {got}, want {geometry}")
+    logger = _stderr_logger(f"chip_smoke.{tag}", logging.INFO)
+    trainer = train_adv.make_trainer(cfg.MODEL.NAME.split("_")[0] + "_fada", cfg,
+                                     logger=logger)
+    randomize_weights_(trainer.segmentor, seed=0)
+    parts = {**trainer.spec.modules, DISC_PART: trainer.disc}
+    before = {name: {n: p.detach().clone() for n, p in m.named_parameters()}
+              for name, m in parts.items()}
+    (sw, sh), (tw, th) = got[3], got[4]
+    log(f"[{tag}] {cfg.MODEL.NAME}: {sum(p.numel() for p in trainer.segmentor.parameters())} "
+        f"parameters, D {sum(p.numel() for p in trainer.disc.parameters())} on "
+        f"{trainer.disc.D[0].in_channels} tap channels, seeded weights; {half} source "
+        f"images at {sw}x{sh} and {half} target images at {tw}x{th} a step")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    if trainer.state.step != steps or len(trainer.loss_data) != steps:
+        raise AssertionError(f"{trainer.state.step} steps taken, want {steps}")
+    for key, values in trainer.series.items():
+        if not all(np.isfinite(values)):
+            raise AssertionError(f"{key} {values}")
+    log(f"[{tag}] {steps} steps: " + "; ".join(
+        f"{key} {[float(f'{v:.4g}') for v in values]}" for key, values in trainer.series.items()))
+    for name, module in parts.items():
+        moved = [(p.detach() - before[name][n]).abs().max().item()
+                 for n, p in module.named_parameters()]
+        log(f"[{tag}]   {name}: {sum(m > 0 for m in moved)} of {len(moved)} parameters "
+            f"moved, by at most {max(moved):.3e}")
+        if not all(m > 0 and np.isfinite(m) for m in moved):
+            raise AssertionError(f"a parameter of {name} did not move")
+    _report_steps(tag, trainer, card, peak_mib, batch=2 * half)
+    return trainer
+
+
+def _fada_split(trainer, reps: int = 3, profile: bool = True):
+    """Host-clock ms of the four parts of a deeplab FADA step, each ended by a
+    device sync, medians of ``reps`` steps at the run's last LRs: the
+    generator's two forwards, loss and backward; the segmentor's update; D's
+    two forwards, loss and backward; D's update.  Also the counted operations
+    of the generator's part and of D's."""
+    from rnd_semantic_segmentation_torch import losses
+    from rnd_semantic_segmentation_torch.train.fada import DISC_PART, TEMPERATURE
+    from rnd_semantic_segmentation_torch.train.state import apply_updates
+    from rnd_semantic_segmentation_torch.train.steps import make_family_loss
+
+    cfg, spec, seg, disc = trainer.cfg, trainer.spec, trainer.segmentor, trainer.disc
+    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    opts = trainer.state.optimizers
+    lr, lr_d = trainer.series["lr"][-1], trainer.series["lr_D"][-1]
+    seg_params = [p for m in spec.modules.values() for p in m.parameters()]
+    batches = []
+    for loader in (trainer.src_loader, trainer.tgt_loader):
+        loader.set_epoch(1)
+        sample = next(iter(loader))
+        batches.append((torch.from_numpy(sample["image"]).to(trainer.device)
+                        .permute(0, 3, 1, 2).contiguous(),
+                        torch.from_numpy(sample["label"]).to(trainer.device)))
+    (src, label), (tgt, _) = batches
+    soft = lambda out: torch.softmax(out.detach() / TEMPERATURE, 1).clamp(max=0.9)
+    pad = lambda p, first: torch.cat([p, torch.zeros_like(p)][::1 if first else -1], 1)
+
+    def generator():
+        (so,), st = seg(src, train=True)
+        (to,), tt = seg(tgt, train=True)
+        ss, ts = soft(so), soft(to)
+        loss = loss_fn((so / TEMPERATURE,), label) + cfg.SOLVER.ADV_WEIGHT * \
+            losses.soft_label_cross_entropy(disc(tt, tgt.shape[-2:]), pad(ts, True))
+        loss.backward(inputs=seg_params)
+        return st.detach(), tt.detach(), ss, ts
+
+    def discriminator(st, tt, ss, ts):
+        loss = 0.5 * losses.soft_label_cross_entropy(disc(st, src.shape[-2:]), pad(ss, True)) \
+            + 0.5 * losses.soft_label_cross_entropy(disc(tt, tgt.shape[-2:]), pad(ts, False))
+        loss.backward()
+
+    held = []
+    flops = {"generator": _counted_flops(lambda: held.append(generator())),
+             "discriminator": _counted_flops(lambda: discriminator(*held.pop()))}
+    calls = {"generator": lambda: held.append(generator()),
+             "segmentor update": lambda: [apply_updates(opts[n], lr * spec.lr_mults[n])
+                                          for n in spec.modules],
+             "discriminator": lambda: discriminator(*held.pop()),
+             "discriminator update": lambda: apply_updates(opts[DISC_PART], lr_d)}
+    parts = {key: [] for key in calls}
+    peaks = {}
+    for _ in range(reps):
+        for opt in opts.values():
+            opt.zero_grad(set_to_none=True)
+        for key, call in calls.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            parts[key].append((time.perf_counter() - t0) * 1e3)
+            peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 20
+    for key in ("generator", "discriminator") if profile else ():
+        _kernel_table(f"train_fada_deeplab {key}", calls, key)
+    return {key: float(np.median(v)) for key, v in parts.items()}, flops, peaks
+
+
+def _kernel_table(tag: str, calls, key: str, top: int = 6) -> None:
+    """One call of ``calls[key]`` (after the parts before it, outside the
+    profile) under ``torch.profiler``: the device time of its kernels by
+    name, the largest first, and their sum against the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    names = list(calls)
+    for name in names[:names.index(key)]:
+        calls[name]()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        calls[key]()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for name in names[names.index(key) + 1:]:
+        calls[name]()
+    rows = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                  key=lambda e: e.self_device_time_total, reverse=True)
+    busy = sum(e.self_device_time_total for e in rows) / 1e3
+    if not rows:
+        log(f"[{tag}] torch.profiler saw no device time: kernel split not measured")
+        return
+    log(f"[{tag}] torch.profiler: kernels {busy:.1f} ms of device time in {wall:.1f} ms "
+        f"on the host's clock; the largest: " + "; ".join(
+            f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.1f} ms "
+            f"({e.self_device_time_total / 1e3 / busy:.0%})" for e in rows[:top]))
+
+
+def phase_train_fada_deeplab(tmp: str, card: str) -> int:
+    """The FADA main path: configs/deeplabv2_r101_adv.yaml, then its
+    checkpoint through ``cli.test``'s own function."""
+    trainer = _run_fada("train_fada_deeplab", tmp, card, "deeplabv2_r101_adv.yaml",
+                        DEEPLAB_FADA_GEOMETRY, FADA_STEPS["deeplab"],
+                        "SOLVER.CHECKPOINT_PERIOD", "1")
+    launches = _check_no_kernel("train_fada_deeplab")
+    pth = os.path.join(trainer.cfg.OUTPUT_DIR, "AsppFada-1.pth")
+    args = test_cli.build_parser().parse_args(
+        ["-c", os.path.join(HERE, "renders", "cityscapes.json")] + _fada_opts(
+            "deeplabv2_r101_adv.yaml", os.path.join(tmp, "eval_fada_deeplab"),
+            "DATASETS.TEST", "synthetic_val",
+            "DATASETS.SYNTHETIC_LENGTH", str(FADA_EVAL_IMAGES), "resume", pth))
+    cfg = load_cfg(args)
+    tester = test_cli.make_tester(cfg, load_json(args.config_path),
+                                  logger=_stderr_logger("chip_smoke.eval_fada_deeplab"))
+    for name, module in trainer.spec.modules.items():
+        trained = module.state_dict()
+        for key, value in tester.segmentor.parts[name].state_dict().items():
+            if not torch.equal(value, trained[key]):
+                raise AssertionError(f"{name}.{key} differs between the trainer and {pth}")
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    summary = tester.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches += _check_no_kernel("eval_fada_deeplab")
+    scalars = [v for v in summary.values() if isinstance(v, float)]
+    if (not scalars or not all(np.isfinite(scalars))
+            or tester.confusion.sum() != FADA_EVAL_IMAGES * SERVE_H * SERVE_W):
+        raise AssertionError(f"summary {summary}")
+    log(f"[eval_fada_deeplab] {pth} ({os.path.getsize(pth) / 2 ** 20:.0f} MiB: the parts, "
+        f"model_D and their optimizers) through cli.test's function on {card}: "
+        f"{FADA_EVAL_IMAGES} images at {SERVE_W}x{SERVE_H} in {wall * 1e3:.0f} ms (first "
+        f"pass, loader and warm-up included); micro mIoU {summary['micro_miou']:.4f}")
+    split, flops, peaks = _fada_split(trainer)
+    peak = PEAK_FLOP_PER_S[torch.float32]
+    total = sum(split.values())
+    log(f"[train_fada_deeplab] a step on {card} (host clock, a device sync after each "
+        f"part, median of 3; {total:.1f} ms in all): " + ", ".join(
+            f"{key} {ms:.1f} ms (peak {peaks[key]:.0f} MiB)" for key, ms in split.items())
+        + f"; counted: generator {flops['generator'] / 1e12:.3f} TFLOP "
+        f"({flops['generator'] / split['generator'] / 1e9:.1f} TFLOP/s), discriminator "
+        f"{flops['discriminator'] / 1e12:.3f} TFLOP "
+        f"({flops['discriminator'] / split['discriminator'] / 1e9:.1f} TFLOP/s); operations "
+        f"bound of a step {sum(flops.values()) / peak * 1e3:.1f} ms at {peak / 1e12:.0f} "
+        f"TFLOP/s float32")
+    # the same split with cuDNN choosing its algorithms by trial (the port
+    # leaves cudnn.benchmark off): what that choice costs on this path
+    torch.backends.cudnn.benchmark = True
+    try:
+        tried, _, tried_peaks = _fada_split(trainer, profile=False)
+    finally:
+        torch.backends.cudnn.benchmark = False
+    log(f"[train_fada_deeplab] the same split with torch.backends.cudnn.benchmark on "
+        f"({sum(tried.values()):.1f} ms in all): " + ", ".join(
+            f"{key} {ms:.1f} ms (peak {tried_peaks[key]:.0f} MiB)" for key, ms in tried.items()))
+    return launches
+
+
+def phase_train_fada_gald(tmp: str, card: str):
+    """GALD FADA: kernels #1 (twice a forward, both domains) and #2 (twice a
+    step, the source decoder only) must launch as often as the step says."""
+    steps = FADA_STEPS["gald"]
+    _run_fada("train_fada_gald", tmp, card, "gald_adv.yaml", GALD_FADA_GEOMETRY, steps,
+              "SOLVER.CHECKPOINT_PERIOD", "2")
+    fwd, bwd = ccattn.KERNEL_LAUNCHES, ccattn.BWD_KERNEL_LAUNCHES
+    log(f"[train_fada_gald] launches over {steps} steps: cc_attention_fwd {fwd} "
+        f"(4 a step: two forwards, two per forward), cc_attention_bwd {bwd} (2 a step), "
+        f"fused_mbconv_fwd {mbconv.KERNEL_LAUNCHES}")
+    if fwd != 4 * steps or bwd != 2 * steps or mbconv.KERNEL_LAUNCHES:
+        raise AssertionError(f"launches over {steps} steps: forward {fwd}, backward {bwd}; "
+                             f"want {4 * steps} and {2 * steps}")
+    return fwd, bwd
+
+
+def phase_train_fada_attn(tmp: str, card: str) -> int:
+    """attn FADA with drop-connect and the config's attn augmentation, and
+    MODEL.FUSED_MBCONV on, which train mode never takes."""
+    _run_fada("train_fada_attn", tmp, card, "attn_adv_kvasir.yaml", ATTN_FADA_GEOMETRY,
+              FADA_STEPS["attn"], "SOLVER.CHECKPOINT_PERIOD", "2",
+              "MODEL.FUSED_MBCONV", "True")
+    return _check_no_kernel("train_fada_attn")
+
+
+def phase_fada_vgg16(tmp: str, card: str) -> int:
+    """The deeplab FADA path with the VGG16 backbone, after its seeded logits'
+    scale at the full training size (no norm damps them)."""
+    cfg = load_cfg(train_adv.build_parser().parse_args(_fada_opts(
+        "deeplabv2_r101_adv.yaml", tmp, "MODEL.NAME", "deeplab_vgg16")))
+    device = resolve_device(cfg.MODEL.DEVICE)
+    segmentor = Segmentor(build_segmentor(cfg), cfg.MODEL.NUM_CLASSES).to(device)
+    randomize_weights_(segmentor, seed=0)
+    with torch.inference_mode():
+        probe = torch.rand(1, 3, TRAIN_H, TRAIN_W, device=device,
+                           generator=torch.Generator(device).manual_seed(0))
+        (logits,), features = segmentor(probe)
+    top = logits.abs().max().item()
+    log(f"[fada_vgg16] seeded deeplab_vgg16 at {TRAIN_W}x{TRAIN_H}: features "
+        f"{tuple(features.shape)}, max |logit| {top:.4f}, logit std {logits.std().item():.4f}")
+    if not (torch.isfinite(logits).all() and 1e-2 < top < 1e2):
+        raise AssertionError(f"seeded VGG16 logits out of range: max {top}")
+    del segmentor, probe, logits, features
+    _run_fada("fada_vgg16", tmp, card, "deeplabv2_r101_adv.yaml", VGG_FADA_GEOMETRY,
+              FADA_STEPS["vgg16"], "SOLVER.CHECKPOINT_PERIOD", "2",
+              "MODEL.NAME", "deeplab_vgg16")
+    return _check_no_kernel("fada_vgg16")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -1595,13 +1901,22 @@ def main(argv=None) -> int:
         deeplab_launches += phase_serve_deeplab(tmp, card)
         torch.cuda.empty_cache()
         train_attn_launches, eval_attn_trained_launches = phase_train_attn(tmp, card)
+        torch.cuda.empty_cache()
+        fada_launches = phase_train_fada_deeplab(tmp, card)
+        torch.cuda.empty_cache()
+        fada_gald_fwd, fada_gald_bwd = phase_train_fada_gald(tmp, card)
+        torch.cuda.empty_cache()
+        fada_attn_launches = phase_train_fada_attn(tmp, card)
+        torch.cuda.empty_cache()
+        fada_launches += phase_fada_vgg16(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
-        "launches": serve_launches + train_fwd_launches,
+        "launches": serve_launches + train_fwd_launches + fada_gald_fwd,
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
-        "launches_deeplab": deeplab_launches,
+        "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_fwd,
+        "launches_fada_deeplab": fada_launches,
         **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
                                           "over H*W pixels with the criss-cross mask",
         "shape": list(MAIN_CC_SHAPE),
@@ -1610,19 +1925,22 @@ def main(argv=None) -> int:
         "name": "cc_attention_bwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_bwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
-        "launches": train_bwd_launches, "launches_deeplab": deeplab_launches,
+        "launches": train_bwd_launches + fada_gald_bwd, "launches_train": train_bwd_launches,
+        "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_bwd,
+        "launches_fada_deeplab": fada_launches,
         **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/mbconv_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
-        "launches": eval_attn_launches + serve_attn_launches,
+        "launches": eval_attn_launches + serve_attn_launches + fada_attn_launches,
         "launches_eval_attn": eval_attn_launches,
         "launches_serve_attn": serve_attn_launches,
         "launches_deeplab": deeplab_launches,
         "launches_train_attn": train_attn_launches,
         "launches_eval_attn_trained": eval_attn_trained_launches,
+        "launches_fada_attn": fada_attn_launches, "launches_fada_deeplab": fada_launches,
         **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")

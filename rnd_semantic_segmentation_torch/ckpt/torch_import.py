@@ -1,10 +1,11 @@
 """Weights between the JAX package's variables and reference ``state_dict``s.
 
-``deeplab_state_dicts_from_flax``, ``gald_state_dicts_from_flax`` and
-``attn_state_dicts_from_flax`` are the inverses of the JAX package's
-``convert_state_dict`` with its ResNet backbone and ASPP classifier, GCPA,
-and attn encoder and decoder rule tables: flax scope paths become the
-reference's torch keys, and by role
+``deeplab_state_dicts_from_flax``, ``gald_state_dicts_from_flax``,
+``attn_state_dicts_from_flax`` and ``disc_state_dict_from_flax`` are the
+inverses of the JAX package's ``convert_state_dict`` with its ResNet
+backbone or VGG16 and ASPP classifier, GCPA, attn encoder and decoder, and
+discriminator rule tables: flax scope paths become the reference's torch
+keys, and by role
 
   * conv kernels go from HWIO to OIHW (depthwise ones too);
   * transposed-conv kernels, which the JAX package stores flipped in
@@ -20,8 +21,9 @@ reference's torch keys, and by role
 They take the variables as nested dicts of arrays (numpy, or anything
 ``np.asarray`` reads) and import no JAX.
 
-``gald_flax_from_state_dicts``, ``deeplab_flax_from_state_dicts`` and
-``attn_flax_from_state_dicts`` go the other way, for the training tests:
+``gald_flax_from_state_dicts``, ``deeplab_flax_from_state_dicts``,
+``attn_flax_from_state_dicts`` and ``disc_flax_from_state_dict`` go the other
+way, for the training tests:
 the port's tensors by ``state_dict`` key (weights, or gradients by parameter
 name) are laid out as a flax tree, so that loss, gradients and updated
 parameters can be compared leaf by leaf.  ``attnwrap_state_dicts_from_flax``
@@ -90,6 +92,20 @@ _ASPP_CLASSIFIER_RULES = [
     (r"^conv2d_(\d+)$", r"conv2d_list.\1"),
     (r"/", "."),
 ]
+# VGG16-FCN: conv0..conv12 are torchvision's ``features`` convs; fc6, fc7 keep
+# their names
+_VGG16_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_VGG16_RULES = [
+    (r"^conv(\d+)$", lambda m: f"features.{_VGG16_CONV_IDX[int(m.group(1))]}"),
+    (r"/", "."),
+]
+# PixelDiscriminator: the trunk Sequential ``D`` has its convs at 0 and 2;
+# FCDiscriminator's conv1..conv4 and classifier keep their names
+_DISC_RULES = [
+    (r"^d0$", "D.0"),
+    (r"^d1$", "D.2"),
+    (r"/", "."),
+]
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "gamma": "gamma"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -139,11 +155,18 @@ def _state_dict_from_flax(variables: Mapping, rules,
     return sd
 
 
+def _feature_extractor_rules(variables: Mapping[str, Any]):
+    """A ResNet feature extractor holds its scopes under ``backbone``; VGG16's
+    are its convs."""
+    return (_RESNET_BACKBONE_RULES if "backbone" in variables["params"]
+            else _VGG16_RULES)
+
+
 def deeplab_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
     """JAX deeplab variables ``{"feature_extractor": ..., "classifier": ...}``
-    (ResNet backbone, BatchNorm or FrozenBN) -> torch state dicts."""
-    return {"feature_extractor": _state_dict_from_flax(variables["feature_extractor"],
-                                                       _RESNET_BACKBONE_RULES),
+    (ResNet backbone with BatchNorm or FrozenBN, or VGG16) -> torch state dicts."""
+    fea = variables["feature_extractor"]
+    return {"feature_extractor": _state_dict_from_flax(fea, _feature_extractor_rules(fea)),
             "classifier": _state_dict_from_flax(variables["classifier"],
                                                 _ASPP_CLASSIFIER_RULES)}
 
@@ -230,12 +253,25 @@ def deeplab_flax_from_state_dicts(tensors: Mapping[str, Mapping],
     """The inverse of ``deeplab_state_dicts_from_flax``, as
     ``gald_flax_from_state_dicts`` is for GALD; the collections are
     ``params``, ``batch_stats`` and ``frozen``."""
+    fea = template["feature_extractor"]
     return {"feature_extractor": _flax_from_state_dict(
-                tensors["feature_extractor"], template["feature_extractor"],
-                _RESNET_BACKBONE_RULES),
+                tensors["feature_extractor"], fea, _feature_extractor_rules(fea)),
             "classifier": _flax_from_state_dict(tensors["classifier"],
                                                 template["classifier"],
                                                 _ASPP_CLASSIFIER_RULES)}
+
+
+def disc_state_dict_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX ``PixelDiscriminator`` or ``FCDiscriminator`` variables -> the
+    reference's torch state dict (``D.0``, ``D.2``, ``cls1``, ``cls2``)."""
+    return _state_dict_from_flax(variables, _DISC_RULES)
+
+
+def disc_flax_from_state_dict(sd: Mapping[str, Any],
+                              template: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``disc_state_dict_from_flax``; ``template`` is a JAX
+    discriminator variables tree, read for its paths only."""
+    return _flax_from_state_dict(sd, template, _DISC_RULES)
 
 
 def attn_flax_from_state_dicts(tensors: Mapping[str, Mapping],

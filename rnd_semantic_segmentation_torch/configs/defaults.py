@@ -20,7 +20,9 @@ DATASETS.SOURCE_TRAIN/TEST/SYNTHETIC_LENGTH, AUG.COLLATE, SEED, DEBUG.NANS,
 DATA_PIPE.NUM_WORKERS/PREFETCH/SEED and the SOLVER keys EPOCHS, LR_METHOD,
 BASE_LR, LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
 LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP, ACCUM_STEPS, CHECKPOINT_PERIOD and
-KEEP_CHECKPOINTS.  A training knob whose counterpart is not ported yet raises
+KEEP_CHECKPOINTS; and for FADA also DATASETS.TARGET_TRAIN and SOLVER.BASE_LR_D
+and ADV_WEIGHT (the FADA step, like the JAX one, reads neither LR_METHOD,
+LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP nor ACCUM_STEPS).  A training knob whose counterpart is not ported yet raises
 NotImplementedError when it is set (MODEL.WEIGHTS, MODEL.REMAT_BLOCKS,
 SOLVER.REMAT, SOLVER.BN_RECAL_BATCHES, SOLVER.ASYNC_CHECKPOINT,
 DATA_PIPE.DEVICE_AUG, DATA_PIPE.WORKER_PROCESSES, DATA_PIPE.NATIVE_DECODE,

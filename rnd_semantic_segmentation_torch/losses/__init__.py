@@ -2,7 +2,8 @@
 
 ``cross_entropy`` is the loss of the gald and deeplab families;
 ``bce_with_logits`` and ``tversky_loss`` make up the attn family's (Tversky
-with alpha 0.7 and eps 1, and BCE, at each of its five scales).  The Dice and
+with alpha 0.7 and eps 1, and BCE, at each of its five scales);
+``soft_label_cross_entropy`` is FADA's discriminator and adversarial loss.  The Dice and
 structure losses come with their families.  Every reduction is in float32,
 whatever the type of the logits.
 """
@@ -50,3 +51,12 @@ def tversky_loss(pred: torch.Tensor, label: torch.Tensor, alpha: float = 0.7,
     fn = (label * (1 - probs)).sum(dims)
     fp = (probs * (1 - label)).sum(dims)
     return 1.0 - ((tp + eps) / (tp + alpha * fn + (1 - alpha) * fp + eps)).mean()
+
+
+def soft_label_cross_entropy(pred: torch.Tensor, soft_label: torch.Tensor) -> torch.Tensor:
+    """``-mean over pixels of sum_c soft_c * log_softmax(pred)_c``.
+
+    pred and soft_label ``[B,C,H,W]``, the class axis dim 1; the mean runs
+    over B, H and W."""
+    per_pixel = -(soft_label.float() * F.log_softmax(pred.float(), dim=1)).sum(1)
+    return per_pixel.mean()

@@ -1,5 +1,5 @@
 """DeepLabV2 family (counterpart of the JAX package's models/aspp.py), on NCHW
-tensors: a dilated ResNet feature extractor and the ASPP-V2 head.
+tensors: the dilated ResNet and VGG16 feature extractors and the ASPP-V2 head.
 
   * ``ResNetFeatureExtractor``: ResNet with
     ``replace_stride_with_dilation=(False, True, True)``, output stride 8,
@@ -10,8 +10,6 @@ tensors: a dilated ResNet feature extractor and the ASPP-V2 head.
     (padding equal to the dilation) in ``conv2d_list``, summed, then resized
     in float32 to ``size`` with align_corners=True.  Weights start N(0, 0.01)
     and biases at 0, as in the JAX package.
-
-The VGG16 feature extractor (``deeplab_vgg16``) comes with a later slice.
 """
 
 from __future__ import annotations
@@ -21,9 +19,13 @@ from typing import Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from ..ops import resize_bilinear
+from ..ops import max_pool, resize_bilinear
 from .layers import Conv2d
 from .resnet import ResNet
+
+# (out_channels of each conv) per block; pools follow blocks 1-3
+_VGG16_BLOCKS = ((64, 64), (128, 128), (256, 256, 256), (512, 512, 512), (512, 512, 512))
+VGG16_CHANNELS = 1024
 
 
 class ResNetFeatureExtractor(nn.Module):
@@ -35,6 +37,31 @@ class ResNetFeatureExtractor(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.backbone(x)["layer4"]
+
+
+class _MaxPool2x2(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return max_pool(x, 2, 2)
+
+
+class VGG16FeatureExtractor(nn.Module):
+    def __init__(self):
+        super().__init__()
+        layers, in_ch = [], 3
+        for b, widths in enumerate(_VGG16_BLOCKS):
+            d = 2 if b == 4 else 1
+            for w in widths:
+                layers += [Conv2d(in_ch, w, 3, padding=d, dilation=d), nn.ReLU()]
+                in_ch = w
+            if b < 4:  # block 4's pool (index 23) is dropped, and block 5's
+                layers.append(_MaxPool2x2() if b < 3 else nn.Identity())
+        self.features = nn.Sequential(*layers)
+        self.fc6 = Conv2d(in_ch, VGG16_CHANNELS, 3, padding=4, dilation=4)
+        self.fc7 = Conv2d(VGG16_CHANNELS, VGG16_CHANNELS, 3, padding=4, dilation=4)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.features(x)
+        return torch.relu(self.fc7(torch.relu(self.fc6(x))))
 
 
 class ASPPClassifierV2(nn.Module):

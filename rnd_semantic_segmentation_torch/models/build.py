@@ -2,11 +2,14 @@
 
 MODEL.NAME is ``<family>_<backbone>``.  The port builds the ``deeplab``
 family with a ResNet backbone (``deeplab_resnet{18,34,50,101,152}``: dilated
-ResNet + ASPP-V2, FrozenBN when ``MODEL.FREEZE_BN``), the ``gald`` family
+ResNet + ASPP-V2, FrozenBN when ``MODEL.FREEZE_BN``) or VGG16
+(``deeplab_vgg16``: VGG16-FCN + ASPP-V2, no norm), the ``gald`` family
 (HarDNet68 + GCPA-CC), the ``attn`` family (EfficientNet-B0..B4 encoder +
 attention-gated UNet decoder, parts ``encoder`` and ``decoder``) and its
-single-module variant ``attnwrap`` (part ``model``); ``deeplab_vgg16`` and
-every other family raise NotImplementedError until their slices are ported.
+single-module variant ``attnwrap`` (part ``model``); every other family
+raises NotImplementedError until its slice is ported.
+``build_adversarial_discriminator`` gives FADA's ``PixelDiscriminator``
+for a family's discriminator tap.
 ``MODEL.FUSED_MBCONV`` reaches the attn encoder as a constructor argument: in
 eval mode its eligible MBConv blocks then run the fused kernel of
 ops/mbconv.py.  ``MODEL.FREEZE_BN`` reaches the ResNet backbones only, as in
@@ -21,8 +24,9 @@ from typing import Dict, Tuple
 import torch
 from torch import nn
 
-from .aspp import ASPPClassifierV2, ResNetFeatureExtractor
+from .aspp import VGG16_CHANNELS, ASPPClassifierV2, ResNetFeatureExtractor, VGG16FeatureExtractor
 from .attn_unet import _DEPTH_MAP, AttnDecoder, AttnEfficientNetUnet
+from .discriminator import PixelDiscriminator
 from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
 from .layers import FrozenBatchNorm2d
@@ -56,20 +60,20 @@ class SegmentorSpec:
 def build_segmentor(cfg) -> SegmentorSpec:
     family, backbone = split_model_name(cfg.MODEL.NAME)
     if family == "deeplab":
-        if backbone.startswith("vgg"):
+        if backbone == "vgg16":
+            # torchvision's vgg16 has no norm: MODEL.FREEZE_BN has nothing to freeze
+            features, channels = VGG16FeatureExtractor(), VGG16_CHANNELS
+        elif backbone.startswith("resnet") and backbone in _ARCHS:
+            features = ResNetFeatureExtractor(backbone, freeze_bn=bool(cfg.MODEL.FREEZE_BN))
+            channels = output_channels(backbone)
+        else:
             raise NotImplementedError(
-                f"deeplab backbone {backbone!r}: the VGG16 feature extractor comes "
-                f"with a later slice; the port builds the ResNet backbones")
-        if not backbone.startswith("resnet") or backbone not in _ARCHS:
-            raise NotImplementedError(
-                f"deeplab backbone {backbone!r}: one of resnet18, resnet34, resnet50, "
-                f"resnet101, resnet152")
+                f"deeplab backbone {backbone!r}: one of vgg16, resnet18, resnet34, "
+                f"resnet50, resnet101, resnet152")
         return SegmentorSpec(
             family=family, backbone=backbone,
-            modules={"feature_extractor": ResNetFeatureExtractor(
-                         backbone, freeze_bn=bool(cfg.MODEL.FREEZE_BN)),
-                     "classifier": ASPPClassifierV2(output_channels(backbone),
-                                                    cfg.MODEL.NUM_CLASSES)},
+            modules={"feature_extractor": features,
+                     "classifier": ASPPClassifierV2(channels, cfg.MODEL.NUM_CLASSES)},
             lr_mults={"feature_extractor": 1.0, "classifier": 10.0},
             optimizer="sgd", ckpt_prefix="Aspp", disc_tap="features",
         )
@@ -107,6 +111,32 @@ def build_segmentor(cfg) -> SegmentorSpec:
     raise NotImplementedError(
         f"model family {family!r} is not ported yet (the port builds 'deeplab', "
         f"'gald', 'attn' and 'attnwrap')")
+
+
+def tap_channels(spec: SegmentorSpec) -> int:
+    """The channels of the feature that feeds the FADA discriminator, read
+    from the modules that consume or make it: the ASPP head's input (deeplab),
+    the GCPA decoder's first conv on the last HarDNet tap (gald), the
+    EfficientNet head conv (attn).  attnwrap has no tap, as in the JAX
+    package, so FADA cannot train it."""
+    fam = spec.family
+    if fam == "deeplab":
+        return spec.modules["classifier"].conv2d_list[0].in_channels
+    if fam == "gald":
+        return spec.modules["decoder"].conva[0].in_channels
+    if fam == "attn":
+        return spec.modules["encoder"].encoder._conv_head.out_channels
+    raise NotImplementedError(
+        f"{fam}: no discriminator tap (the single-module variant returns none); "
+        f"FADA trains deeplab, gald and attn")
+
+
+def build_adversarial_discriminator(cfg, spec: SegmentorSpec) -> PixelDiscriminator:
+    """FADA's discriminator: ndf 256 (the JAX package's ``mid_nc``), two heads
+    of NUM_CLASSES.  Its input channels are the tap's (``tap_channels``),
+    where the JAX package's table (``_DISC_FEATURES``) is thrown away by flax,
+    and would be wrong for resnet18/34 (512) and EfficientNets other than B2."""
+    return PixelDiscriminator(tap_channels(spec), ndf=256, num_classes=cfg.MODEL.NUM_CLASSES)
 
 
 @torch.no_grad()

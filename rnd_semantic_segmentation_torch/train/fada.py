@@ -1,0 +1,129 @@
+"""FADA adversarial domain-adaptation train step (counterpart of the JAX
+package's train/fada.py).
+
+One call runs the reference's three phases:
+
+  1. the source forward in train mode and its segmentation loss: CE on
+     ``outputs / 1.8`` for deeplab and gald, the five-scale Tversky + BCE on
+     the raw outputs for attn;
+  2. the target forward in train mode (BatchNorm statistics chain on from the
+     source forward) and the generator's adversarial loss
+     ``ADV_WEIGHT * softCE(D(tgt_tap, tgt_size), [tgt_soft | 0])``; one
+     backward of the sum reaches the segmentor's parameters only, where D is
+     a constant (the reference zeroes D's gradients before D's own step);
+     then one optimizer step per part;
+  3. D's step on the taps of the pre-update forwards, detached:
+     ``0.5 * softCE(D(src_tap), [src_soft | 0]) + 0.5 * softCE(D(tgt_tap), [0 | tgt_soft])``.
+
+The soft labels are ``min(softmax(final / 1.8), 0.9)``, detached, where
+``final`` is the first output (deeplab, attn) or out2, the last (gald).
+
+LRs: poly per iteration on ``BASE_LR`` and ``BASE_LR_D`` for deeplab and
+gald, warm-up cosine per epoch on both for attn, each segmentor part at its
+``lr_mults``.  Like the JAX step it reads neither LR_METHOD, LR_BATCH_REF,
+WARMUP_ITERS, ACCUM_STEPS nor GRAD_CLIP.  D trains with Adam (betas 0.9,
+0.99, eps 1e-8, no weight decay), the parts with ``make_optimizers``'.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional
+
+import torch
+from torch import nn
+
+from .. import losses
+from .schedules import poly_lr, warmup_cosine_lr
+from .segmentor import Segmentor
+from .state import TrainState, apply_updates, make_optimizer
+from .steps import check_step_knobs, make_family_loss, step_seed
+
+TEMPERATURE = 1.8
+SOFT_CLIP = 0.9
+DISC_PART = "model_D"  # D's name in the train state and in a checkpoint
+
+
+def make_disc_optimizer(disc: nn.Module) -> torch.optim.Optimizer:
+    return make_optimizer("adam", disc.parameters(), betas=(0.9, 0.99))
+
+
+def _soft_label(final: torch.Tensor) -> torch.Tensor:
+    soft = torch.softmax(final.detach().float() / TEMPERATURE, dim=1)
+    return soft.clamp(max=SOFT_CLIP)
+
+
+def make_fada_train_step(segmentor: Segmentor, disc: nn.Module, cfg,
+                         steps_per_epoch: int, state: TrainState,
+                         seed: Optional[int] = None) -> Callable:
+    """Returns ``step(src_batch, tgt_batch, epoch0) -> metrics``, the floats
+    ``loss_seg``, ``loss_adv_tgt``, ``loss_D_src``, ``loss_D_tgt``, ``lr``
+    and ``lr_D``; it updates the segmentor, D, ``state.optimizers`` (the
+    parts' and D's under ``DISC_PART``) and ``state.step`` in place.
+
+    Batches are ``{"image": [B,H,W,3] float, "label": [B,H,W] int}`` on the
+    segmentor's device; the target's label is not read.  The step's
+    ``torch.Generator`` (attn drop-connect) is seeded with
+    ``step_seed(seed, state.step)`` before each of the two forwards, so both
+    domains draw the same masks, as both JAX forwards take one key.
+    """
+    check_step_knobs(cfg)
+    spec = segmentor.spec
+    if spec.family not in ("deeplab", "gald", "attn"):
+        raise NotImplementedError(f"FADA for the {spec.family} family: the port "
+                                  f"trains deeplab, gald and attn adversarially")
+    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    adv_weight = float(cfg.SOLVER.ADV_WEIGHT)
+    max_iter = cfg.SOLVER.EPOCHS * steps_per_epoch
+    epoch_sched = spec.family == "attn"
+
+    def lr_at(base, it, epoch0):
+        if epoch_sched:
+            return warmup_cosine_lr(base, epoch0)
+        return poly_lr(base, it, max_iter, cfg.SOLVER.LR_POWER)
+
+    final = (lambda outs: outs[-1]) if spec.family == "gald" else (lambda outs: outs[0])
+    seg_params = [p for m in spec.modules.values() for p in m.parameters()]
+    seed = cfg.SEED if seed is None else seed
+    generator = torch.Generator(device=seg_params[0].device)
+
+    def forward(batch):
+        x = batch["image"].float().permute(0, 3, 1, 2).contiguous()
+        generator.manual_seed(step_seed(seed, state.step))
+        outputs, tap = segmentor(x, label_size=x.shape[-2:], train=True, generator=generator)
+        return outputs, tap, tuple(x.shape[-2:])
+
+    def step_fn(src_batch: Dict[str, torch.Tensor], tgt_batch: Dict[str, torch.Tensor],
+                epoch0) -> Dict[str, float]:
+        for opt in state.optimizers.values():
+            opt.zero_grad(set_to_none=True)
+        src_outputs, src_tap, src_size = forward(src_batch)
+        scaled = src_outputs if epoch_sched else tuple(o / TEMPERATURE for o in src_outputs)
+        loss_seg = loss_fn(scaled, src_batch["label"])
+        src_soft = _soft_label(final(src_outputs))
+        tgt_outputs, tgt_tap, tgt_size = forward(tgt_batch)
+        tgt_soft = _soft_label(final(tgt_outputs))
+        zeros = torch.zeros_like(tgt_soft)
+        loss_adv = adv_weight * losses.soft_label_cross_entropy(
+            disc(tgt_tap, tgt_size), torch.cat([tgt_soft, zeros], dim=1))
+        # inputs=: D is a constant of the generator's loss, its .grad stays empty
+        (loss_seg + loss_adv).backward(inputs=seg_params)
+        it = float(state.step)
+        lr = lr_at(cfg.SOLVER.BASE_LR, it, epoch0)
+        for name in spec.modules:
+            apply_updates(state.optimizers[name], lr * spec.lr_mults[name])
+
+        src_tap, tgt_tap = src_tap.detach(), tgt_tap.detach()
+        loss_d_src = 0.5 * losses.soft_label_cross_entropy(
+            disc(src_tap, src_size), torch.cat([src_soft, torch.zeros_like(src_soft)], dim=1))
+        loss_d_tgt = 0.5 * losses.soft_label_cross_entropy(
+            disc(tgt_tap, tgt_size), torch.cat([zeros, tgt_soft], dim=1))
+        (loss_d_src + loss_d_tgt).backward()
+        lr_d = lr_at(cfg.SOLVER.BASE_LR_D, it, epoch0)
+        apply_updates(state.optimizers[DISC_PART], lr_d)
+        state.step += 1
+        values = torch.stack([loss_seg.detach(), loss_adv.detach(), loss_d_src.detach(),
+                              loss_d_tgt.detach()]).tolist()  # one device sync
+        return dict(zip(("loss_seg", "loss_adv_tgt", "loss_D_src", "loss_D_tgt"), values),
+                    lr=lr, lr_D=lr_d)
+
+    return step_fn

@@ -104,6 +104,17 @@ def make_lr_schedule(spec, cfg, steps_per_epoch: int) -> Callable:
     return lambda it, ep0: sched(it, ep0) * min(1.0, (it + 1.0) / warmup_iters)
 
 
+def check_step_knobs(cfg) -> None:
+    """The step knobs of the JAX package that the port does not take yet raise."""
+    if str(cfg.SOLVER.REMAT).lower() not in ("none", "", "0", "false"):
+        raise NotImplementedError(
+            f"SOLVER.REMAT {cfg.SOLVER.REMAT!r}: activation checkpointing is not "
+            f"ported yet; use 'none'")
+    if cfg.DEBUG.CHECKIFY:
+        raise NotImplementedError("DEBUG.CHECKIFY has no counterpart in the port yet; "
+                                  "DEBUG.NANS turns on autograd's anomaly detection")
+
+
 def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
                         state: TrainState, seed: Optional[int] = None) -> Callable:
     """Returns ``step(batch, epoch0) -> {"loss", "lr"}``; it updates the
@@ -119,13 +130,7 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
     ``step_seed(seed, state.step)`` at the start of every step (``seed``
     defaults to ``cfg.SEED``, as the JAX step's ``base_rng`` does).
     """
-    if str(cfg.SOLVER.REMAT).lower() not in ("none", "", "0", "false"):
-        raise NotImplementedError(
-            f"SOLVER.REMAT {cfg.SOLVER.REMAT!r}: activation checkpointing is not "
-            f"ported yet; use 'none'")
-    if cfg.DEBUG.CHECKIFY:
-        raise NotImplementedError("DEBUG.CHECKIFY has no counterpart in the port yet; "
-                                  "DEBUG.NANS turns on autograd's anomaly detection")
+    check_step_knobs(cfg)
     spec = segmentor.spec
     loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
     lr_sched = make_lr_schedule(spec, cfg, steps_per_epoch)

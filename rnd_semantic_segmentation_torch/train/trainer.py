@@ -1,5 +1,5 @@
-"""Source-supervised trainer (counterpart of ``Trainer`` in the JAX package's
-train/trainer.py).
+"""Source-supervised and adversarial trainers (counterparts of ``Trainer``
+and ``FadaTrainer`` in the JAX package's train/trainer.py).
 
 Loop semantics kept from the reference trainers:
   * the LR is rewritten every iteration (inside the step);
@@ -7,13 +7,14 @@ Loop semantics kept from the reference trainers:
     a step waited for its batch and ``time`` the whole step;
   * a checkpoint every SOLVER.CHECKPOINT_PERIOD epochs, ``{Prefix}-{epoch}.pth``,
     pruned to SOLVER.KEEP_CHECKPOINTS;
-  * the loss and LR series dumped to ``<family>_chart_params.json``;
+  * the step's series dumped to ``<family>_chart_params.json`` (FADA:
+    ``<family>_fada_chart_params.json``, six series);
   * resume from ``cfg.resume`` (a file, or ``latest`` in OUTPUT_DIR);
   * the step's drop-connect generator is seeded from ``SEED + 1``, as the
     JAX trainer's ``base_rng`` is, and reseeded per step from the step count.
 
-One device, no mesh.  The adversarial trainer, PraNet's multi-scale steps and
-the knobs that raise below come with their slices.
+One device, no mesh.  PraNet's multi-scale steps and the knobs that raise
+below come with their slices.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ from ..ckpt.checkpoint_io import (
     save_checkpoint,
 )
 from ..data.loader import DataLoader, device_prefetch
-from ..models.build import build_segmentor
+from ..models.build import build_adversarial_discriminator, build_segmentor
 from ..utils import MetricLogger, dump_json, resolve_device, setup_logger
+from .fada import DISC_PART, make_disc_optimizer, make_fada_train_step
 from .segmentor import Segmentor
 from .state import TrainState, make_optimizers
 from .steps import make_src_train_step
@@ -60,12 +62,27 @@ def _refuse_unported(cfg) -> None:
 
 
 class Trainer:
+    """The source-only trainer; ``FadaTrainer`` runs its loop on two streams."""
+
+    # chart title -> metric of the step, dumped to <chart name>_chart_params.json
+    CHART = {"learning rate": "lr", "loss": "loss"}
+
     def __init__(self, name: str, cfg, train_loader: DataLoader,
                  local_rank: int = 0, logger=None):
+        self._build(name, cfg, local_rank, logger)
+        self.train_loader = train_loader
+        self.state = TrainState(optimizers=make_optimizers(self.spec, cfg))
+        self.ckpt_prefix, self.ckpt_modules = self.spec.ckpt_prefix, self.spec.modules
+        self.chart_name = self.spec.family
+        self.start_epoch = self._resume()
+        self.steps_per_epoch = len(train_loader)
+        self.step_fn = make_src_train_step(self.segmentor, cfg, self.steps_per_epoch,
+                                           self.state, seed=cfg.SEED + 1)
+
+    def _build(self, name: str, cfg, local_rank: int, logger) -> None:
         _refuse_unported(cfg)
         self.cfg = cfg
         self.name = name
-        self.train_loader = train_loader
         self.logger = logger or setup_logger(name + "_train", cfg.OUTPUT_DIR, local_rank)
         self.device = resolve_device(cfg.MODEL.DEVICE)
         if cfg.DEBUG.NANS:
@@ -73,21 +90,34 @@ class Trainer:
         torch.manual_seed(cfg.SEED)
         self.spec = build_segmentor(cfg)
         self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES).to(self.device)
-        self.state = TrainState(optimizers=make_optimizers(self.spec, cfg))
-        self.start_epoch = 1
-        self.lr_data = []
-        self.loss_data = []
+        self.series = {key: [] for key in self.CHART.values()}
 
-        resume = cfg.resume
+    def _resume(self) -> int:
+        """Restores ``ckpt_modules`` and ``state`` from ``cfg.resume`` (a file,
+        or ``latest`` of ``ckpt_prefix`` in OUTPUT_DIR); returns the epoch to
+        start from."""
+        resume = self.cfg.resume
         if resume == "latest":
-            resume = latest_checkpoint(cfg.OUTPUT_DIR, self.spec.ckpt_prefix) or ""
-        if resume:
-            self.logger.info(f"Loading checkpoint from {resume}")
-            self.start_epoch = load_checkpoint(resume, self.spec.modules, self.state)
+            resume = latest_checkpoint(self.cfg.OUTPUT_DIR, self.ckpt_prefix) or ""
+        if not resume:
+            return 1
+        self.logger.info(f"Loading checkpoint from {resume}")
+        return load_checkpoint(resume, self.ckpt_modules, self.state)
 
-        self.steps_per_epoch = len(train_loader)
-        self.step_fn = make_src_train_step(self.segmentor, cfg, self.steps_per_epoch,
-                                           self.state, seed=cfg.SEED + 1)
+    @property
+    def lr_data(self):
+        return self.series["lr"]
+
+    @property
+    def loss_data(self):
+        return self.series["loss"]
+
+    def _batches(self, epoch: int):
+        """The step's arguments but the epoch, one tuple a step."""
+        self.train_loader.set_epoch(epoch)  # shuffle order is f(seed, epoch)
+        for batch in device_prefetch(iter(self.train_loader), self.cfg.DATA_PIPE.PREFETCH,
+                                     device=self.device):
+            yield (batch,)
 
     def _peak_memory_mb(self) -> float:
         if self.device.type != "cuda":
@@ -98,7 +128,7 @@ class Trainer:
         cfg = self.cfg
         self.meters = meters = MetricLogger(delimiter="  ")
         max_iter = cfg.SOLVER.EPOCHS * self.steps_per_epoch
-        self.logger.info("#" * 20 + f" Start {self.spec.ckpt_prefix} Training " + "#" * 20)
+        self.logger.info("#" * 20 + f" Start {self.ckpt_prefix} Training " + "#" * 20)
         # reproducibility: snapshot the resolved config next to the run
         os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
         with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as fh:
@@ -108,45 +138,89 @@ class Trainer:
         iteration = self.state.step
         for epoch in range(self.start_epoch, cfg.SOLVER.EPOCHS + 1):
             epoch0 = float(epoch - 1)
-            self.train_loader.set_epoch(epoch)  # shuffle order is f(seed, epoch)
-            it = device_prefetch(iter(self.train_loader), cfg.DATA_PIPE.PREFETCH,
-                                 device=self.device)
+            it = self._batches(epoch)
             while True:
                 tic = time.time()
                 try:
                     # fetched explicitly, so that a stall of the host pipeline
                     # shows: `data` is the time the device waited for input
-                    batch = next(it)
+                    args = next(it)
                 except StopIteration:
                     break
                 data_time = time.time() - tic
-                metrics = self.step_fn(batch, epoch0)  # ends in a device sync
+                metrics = self.step_fn(*args, epoch0)  # ends in a device sync
                 iteration += 1
-                loss, lr = metrics["loss"], metrics["lr"]
-                meters.update(loss_seg=loss, time=time.time() - tic, data=data_time)
-                self.lr_data.append(lr)
-                self.loss_data.append(loss)
+                meters.update(time=time.time() - tic, data=data_time,
+                              **{k: v for k, v in metrics.items() if k.startswith("loss")})
+                for key, values in self.series.items():
+                    values.append(metrics[key])
                 if iteration % 20 == 0 or iteration == max_iter:
                     eta = meters.meters["time"].global_avg * (max_iter - iteration)
                     self.logger.info(
                         f"Epoch: {epoch}  eta: {datetime.timedelta(seconds=int(eta))}  "
-                        f"iter: {iteration}  {meters}  lr: {lr:.6f}  "
+                        f"iter: {iteration}  {meters}  lr: {metrics['lr']:.6f}  "
                         f"max mem: {self._peak_memory_mb():.0f}")
             if epoch % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
                 # prune to keep-1 before the save, so that retention lands at
                 # SOLVER.KEEP_CHECKPOINTS (0 keeps all) after it, but never
                 # below one complete checkpoint while the new one is written
                 if cfg.SOLVER.KEEP_CHECKPOINTS > 0:
-                    prune_checkpoints(cfg.OUTPUT_DIR, self.spec.ckpt_prefix,
+                    prune_checkpoints(cfg.OUTPUT_DIR, self.ckpt_prefix,
                                       max(cfg.SOLVER.KEEP_CHECKPOINTS - 1, 1))
-                path = checkpoint_name(cfg.OUTPUT_DIR, self.spec.ckpt_prefix, epoch)
-                save_checkpoint(path, self.spec.modules, self.state, epoch)
+                path = checkpoint_name(cfg.OUTPUT_DIR, self.ckpt_prefix, epoch)
+                save_checkpoint(path, self.ckpt_modules, self.state, epoch)
                 self.logger.info(f"[Saving Snapshot:] {path}")
 
         total = time.time() - start
         self.logger.info(
             f"Total training time: {datetime.timedelta(seconds=int(total))} "
             f"({total / max(cfg.SOLVER.EPOCHS, 1):.4f} s / epoch)")
-        dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.spec.family}_chart_params.json"),
-                  {"learning rate": self.lr_data, "loss": self.loss_data})
+        dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.chart_name}_chart_params.json"),
+                  {title: self.series[key] for title, key in self.CHART.items()})
         return self.state
+
+
+class FadaTrainer(Trainer):
+    """The adversarial trainer (counterpart of the JAX package's
+    ``FadaTrainer``): source and target loaders zipped, an epoch of
+    ``min(len(src), len(tgt))`` steps of ``make_fada_train_step``.
+
+    The discriminator is sized from the segmentor's tap and seeded from
+    ``SEED + 2``, the step's drop-connect generator from ``SEED + 3``.  A
+    checkpoint ``{Prefix}Fada-{epoch}.pth`` holds the segmentor's parts and
+    ``model_D``, each with its optimizer, and ``epoch`` and ``step`` (the
+    reference's combined layout); ``resume`` restores all of them."""
+
+    CHART = {"learning rate": "lr", "discriminator learning rate": "lr_D",
+             "segmentation loss": "loss_seg", "target adversarial loss": "loss_adv_tgt",
+             "source discriminator loss": "loss_D_src",
+             "target discriminator loss": "loss_D_tgt"}
+
+    def __init__(self, name: str, cfg, src_loader: DataLoader, tgt_loader: DataLoader,
+                 local_rank: int = 0, logger=None):
+        self._build(name, cfg, local_rank, logger)
+        self.src_loader, self.tgt_loader = src_loader, tgt_loader
+        torch.manual_seed(cfg.SEED + 2)
+        self.disc = build_adversarial_discriminator(cfg, self.spec).to(self.device)
+        self.state = TrainState(optimizers={**make_optimizers(self.spec, cfg),
+                                            DISC_PART: make_disc_optimizer(self.disc)})
+        self.ckpt_prefix = f"{self.spec.ckpt_prefix}Fada"
+        self.ckpt_modules = {**self.spec.modules, DISC_PART: self.disc}
+        self.chart_name = f"{self.spec.family}_fada"
+        self.start_epoch = self._resume()
+        self.steps_per_epoch = min(len(src_loader), len(tgt_loader))
+        self.step_fn = make_fada_train_step(self.segmentor, self.disc, cfg,
+                                            self.steps_per_epoch, self.state,
+                                            seed=cfg.SEED + 3)
+
+    @property
+    def loss_data(self):
+        return self.series["loss_seg"]
+
+    def _batches(self, epoch: int):
+        streams = []
+        for loader in (self.src_loader, self.tgt_loader):
+            loader.set_epoch(epoch)
+            streams.append(device_prefetch(iter(loader), self.cfg.DATA_PIPE.PREFETCH,
+                                           device=self.device))
+        return zip(*streams)

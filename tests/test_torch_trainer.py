@@ -160,7 +160,7 @@ def test_prune_checkpoints(tmp_path):
     ("MODEL.REMAT_BLOCKS", "True"),
     ("DEBUG.CHECKIFY", "True"),
     ("DATASETS.SOURCE_TRAIN", "gta5_train"),
-    ("MODEL.NAME", "deeplab_vgg16"),
+    ("MODEL.NAME", "pranet_res2net50"),
     ("AUG.NAME", "pra"),
 ], ids=lambda o: o[0])
 def test_every_knob_that_waits_raises(tmp_path, opts):
