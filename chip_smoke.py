@@ -95,17 +95,52 @@ no result line on any failure.  Phases, each of which raises:
               augmentation on, MODEL.FUSED_MBCONV on, 4 steps; no hand kernel;
  15. fada_vgg16  the train_fada_deeplab path with MODEL.NAME deeplab_vgg16, 2
               steps, after the seeded VGG16's logits at 1280x720 (finite, of
-              order one: no norm damps them).
+              order one: no norm damps them);
+ 16. data_files  the datasets on disk, written from seed 0 into the run's
+              tmp directory in each one's layout (``write_dataset_trees``):
+              GTA5 12 + 4 images at 1914x1052, Cityscapes 12 + 4 at
+              2048x1024, Kvasir 120 + 8 and BLI 20 + 8 at sizes from 332x487
+              to 1350x1080, smooth noise with blobs, PNG (BLI images JPEG);
+              one item of each reader timed through its config's transform;
+ 17. train_fada_files  configs/deeplabv2_r101_adv.yaml with only
+              DATASETS.DATASET_DIR (and OUTPUT_DIR, the length of the run)
+              set: gta5_train -> cityscapes_train from those files, 3 steps of
+              4 + 4 images, as train_fada_deeplab checks it; no hand kernel;
+ 18. saveres_cityscapes  ``cli.test --saveres -c renders/cityscapes.json``
+              with that AsppFada-1.pth, its logits centred over one batch,
+              on cityscapes_train (PSEUDO_DIR <root>/cityscapes/soft_labels):
+              12 palette PNGs at 2048x1024, each with more than one id,
+              unlike the others and the argmax of a plain ``Tester``
+              forward of its image;
+ 19. train_distill_files  ``cli.train_distill`` with
+              configs/deeplabv2_r101_tgt_self_distill.yaml over
+              cityscapes_self_distill_train (those PNGs as labels): batch 5 at
+              1024x512, scales 0.5-1.5 and flips, 2 steps from seeded weights;
+              a batch's labels are two or more pseudo-label ids and 255; no
+              hand kernel;
+ 20. train_attn_files  configs/attn_src_kvasir.yaml on polyp_train files:
+              ``measure_overlap`` of the config's thread loader and of a loader
+              of N worker processes (N = the host's cores less 2) over two
+              epochs against PR 9's attn step, then two epochs of 6 steps of
+              20 at 512x512 with each, the second reported; then the last
+              checkpoint through ``cli.test`` on bli_val files
+              (renders/bli.json) with MODEL.FUSED_MBCONV on: 17 launches of
+              kernel #3 a forward.
 No hand kernel lies on the DeepLab path or on the attn training path, FADA's
-included: their phases check that none of the three launched.
+and self-distillation's included: their phases check that none of the three
+launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
 phases (kernels, kernels_bwd, kernels_mbconv, serve, train, eval_attn,
 serve_attn, train_deeplab, eval_deeplab, serve_deeplab, train_attn,
-train_fada_deeplab, train_fada_gald, train_fada_attn, fada_vgg16; device and
-build always run) and prints no result lines: an aid while working on
-one path.
+train_fada_deeplab, train_fada_gald, train_fada_attn, fada_vgg16, data_files,
+train_fada_files, saveres_cityscapes, train_distill_files, train_attn_files;
+device and build always run) and prints no result lines: an aid while
+working on one path.  A phase before data_files that evaluates or serves a
+checkpoint makes a seeded one when the phase that trains it did not run; a
+phase after it that reads another's output (files, a checkpoint,
+pseudo-labels) raises, naming that phase.
 """
 
 from __future__ import annotations
@@ -134,6 +169,7 @@ from rnd_semantic_segmentation_torch.cli import test as test_cli
 from rnd_semantic_segmentation_torch.cli import train_adv, train_src
 from rnd_semantic_segmentation_torch.cli.common import load_cfg
 from rnd_semantic_segmentation_torch.cli.serve import build_parser
+from rnd_semantic_segmentation_torch.data.trees import write_dataset_trees
 from rnd_semantic_segmentation_torch.eval.tester import Tester
 from rnd_semantic_segmentation_torch.models import gcpa
 from rnd_semantic_segmentation_torch.models.build import build_segmentor, randomize_weights_
@@ -216,6 +252,18 @@ ATTN_FADA_GEOMETRY = (ATTN_MODEL, 2, 20, (ATTN_SIZE, ATTN_SIZE), (ATTN_SIZE, ATT
                       1e-3, 1e-4)
 FADA_STEPS = {"deeplab": 6, "gald": 4, "attn": 4, "vgg16": 2}
 FADA_EVAL_IMAGES = 4
+# the paths on files (DATA_TREES): steps of FADA (12 GTA5 images, 4 a step),
+# of the distillation (12 Cityscapes images, 5 a step) and of attn (two
+# epochs of 120 Kvasir images, 20 a step)
+FILE_STEPS = {"fada": 3, "distill": 2, "attn": 12}
+ATTN_FILE_EPOCHS = 2
+# configs/deeplabv2_r101_tgt_self_distill.yaml as (MODEL.NAME, NUM_CLASSES,
+# SOURCE_TRAIN, BATCH_SIZE, SOURCE_INPUT_SIZE_TRAIN, INPUT_SCALES_TRAIN,
+# HORIZONTAL_FLIP_PROB_TRAIN, DISTILL.ONLINE)
+DISTILL_GEOMETRY = ("deeplab_resnet101", 19, "cityscapes_self_distill_train", 5, (1024, 512),
+                    (0.5, 1.5), 0.5, False)
+# PR 9's attn step of 20 at 512x512 on the card (NVIDIA H100 80GB HBM3, 700 W)
+ATTN_PR9_STEP_MS = 273.8
 # the card against the CPU: a seeded deeplab_resnet18 at 64x64, logits within
 # this share of their largest magnitude (float32 sums in other orders through
 # 20 convolutions; cuDNN without TF32)
@@ -1604,10 +1652,11 @@ def _fada_opts(config: str, out_dir: str, *more):
 
 
 def _run_fada(tag: str, tmp: str, card: str, config: str, geometry: tuple, steps: int,
-              *more):
+              *more, data_dir: str = ""):
     """One epoch of ``steps`` FADA steps through ``cli.train_adv``'s parser and
     ``FadaTrainer`` from seeded weights: the synthetic source and its shifted
-    target, SOLVER.BATCH_SIZE // 2 images of each a step.  Checks the
+    target, or with ``data_dir`` the config's own datasets read from the files
+    there, SOLVER.BATCH_SIZE // 2 images of each a step.  Checks the
     config's geometry (MODEL.NAME, NUM_CLASSES, BATCH_SIZE, the source and
     target sizes, BASE_LR, BASE_LR_D), that the four losses are finite and
     that every parameter of every segmentor part and of D moved.  The kernel
@@ -1616,8 +1665,10 @@ def _run_fada(tag: str, tmp: str, card: str, config: str, geometry: tuple, steps
 
     out_dir = os.path.join(tmp, tag)
     half = geometry[2] // 2
-    cfg = load_cfg(train_adv.build_parser().parse_args(_fada_opts(
-        config, out_dir, "DATASETS.SYNTHETIC_LENGTH", str(half * steps), *more)))
+    opts = (["-cfg", os.path.join(HERE, "configs", config), "DATASETS.DATASET_DIR", data_dir,
+             "SOLVER.EPOCHS", "1", "OUTPUT_DIR", out_dir, *more] if data_dir else
+            _fada_opts(config, out_dir, "DATASETS.SYNTHETIC_LENGTH", str(half * steps), *more))
+    cfg = load_cfg(train_adv.build_parser().parse_args(opts))
     got = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
            tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN), tuple(cfg.INPUT.TARGET_INPUT_SIZE_TRAIN),
            cfg.SOLVER.BASE_LR, cfg.SOLVER.BASE_LR_D)
@@ -1866,6 +1917,335 @@ def phase_fada_vgg16(tmp: str, card: str) -> int:
     return _check_no_kernel("fada_vgg16")
 
 
+def _needs(path: str, phase: str) -> str:
+    """``path``, which ``phase`` writes; raises when that phase did not run."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{path} is missing: run the phase {phase} first")
+    return path
+
+
+def _data_root(tmp: str) -> str:
+    """The trees phase_data_files wrote."""
+    return _needs(os.path.join(tmp, "data"), "data_files")
+
+
+def _data_share(trainer) -> float:
+    """The share of steps 2.. that waited for the loader."""
+    times = trainer.meters.meters["time"].series[1:]
+    return sum(trainer.meters.meters["data"].series[1:]) / sum(times)
+
+
+def phase_data_files(tmp: str, card: str) -> None:
+    """Writes the GTA5, Cityscapes, Kvasir and BLI trees (DATA_TREES) from
+    seed 0, then times one item of each reader through its config's train
+    transform on the host (``stage_times``)."""
+    from rnd_semantic_segmentation_torch.data import build_dataset, stage_times
+
+    root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    written = write_dataset_trees(root, seed=0)
+    seconds = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+    log(f"[data_files] {written} files ({size / 2 ** 20:.0f} MiB) written in {seconds:.1f} s "
+        f"under {root}: smooth noise with blobs, PNG (BLI images JPEG)")
+    for config, key, name in (("deeplabv2_r101_adv.yaml", "SOURCE_TRAIN", "gta5_train"),
+                              ("deeplabv2_r101_adv.yaml", "TARGET_TRAIN", "cityscapes_train"),
+                              ("attn_src_kvasir.yaml", "SOURCE_TRAIN", "polyp_train"),
+                              ("attn_adv_kvasir.yaml", "TARGET_TRAIN", "bli_train")):
+        cfg = load_cfg(train_src.build_parser().parse_args(
+            ["-cfg", os.path.join(HERE, "configs", config), "DATASETS.DATASET_DIR", root]))
+        if getattr(cfg.DATASETS, key) != name:
+            raise AssertionError(f"configs/{config} gives {key} {getattr(cfg.DATASETS, key)}")
+        dataset = build_dataset(cfg, "train", is_source=key == "SOURCE_TRAIN")
+        image, label, _ = dataset[0]
+        timing = stage_times(dataset, cfg.AUG.NAME, n=4)
+        log(f"[data_files] {name} ({type(dataset).__name__}, {len(dataset)} images, "
+            f"{config}'s {cfg.AUG.NAME} train transform): {image.shape} {image.dtype} "
+            f"image, {label.shape} {label.dtype} label; "
+            f"{timing['getitem_ms_per_item']} ms an item on one host core")
+
+
+def phase_train_fada_files(tmp: str, card: str) -> int:
+    """configs/deeplabv2_r101_adv.yaml as its users run it: gta5_train ->
+    cityscapes_train from the files, 3 steps of 4 + 4 images."""
+    trainer = _run_fada("train_fada_files", tmp, card, "deeplabv2_r101_adv.yaml",
+                        DEEPLAB_FADA_GEOMETRY, FILE_STEPS["fada"], data_dir=_data_root(tmp))
+    names = (trainer.cfg.DATASETS.SOURCE_TRAIN, trainer.cfg.DATASETS.TARGET_TRAIN)
+    if names != ("gta5_train", "cityscapes_train"):
+        raise AssertionError(f"the config's datasets are {names}")
+    log(f"[train_fada_files] {names[0]} ({type(trainer.src_loader.dataset).__name__}) -> "
+        f"{names[1]} ({type(trainer.tgt_loader.dataset.dataset).__name__}); data share "
+        f"{_data_share(trainer):.1%}")
+    return _check_no_kernel("train_fada_files")
+
+
+def _centred_teacher(tag: str, cfg, render, pth: str, out: str) -> str:
+    """``pth`` with each class's mean logit over the first batch of
+    DATASETS.TEST taken off its classifier's bias, written to ``out``.  A
+    seeded teacher trained for a few steps gives every class a logit that is
+    nearly constant over the image, and one class wins everywhere; centred,
+    the argmax follows the image, so the PNGs it writes can be told apart."""
+    probe = test_cli.make_tester(cfg, render, logger=_stderr_logger(f"chip_smoke.{tag}"))
+    batch = next(iter(probe.test_loader))
+    x = torch.from_numpy(batch["image"]).to(probe.device).permute(0, 3, 1, 2).contiguous()
+    with torch.inference_mode():
+        (logits,), _ = probe.segmentor(x)
+    mean = logits.float().mean(dim=(0, 2, 3)).cpu()
+    ckpt = torch.load(pth, map_location="cpu", weights_only=True)
+    ckpt["classifier"]["conv2d_list.0.bias"] -= mean
+    torch.save(ckpt, out)
+    log(f"[{tag}] teacher: {pth} with the class means of its logits over "
+        f"{len(batch['name'])} images ({mean.min().item():.3f} to {mean.max().item():.3f}) "
+        f"taken off the classifier's bias")
+    del probe, x, logits
+    return out
+
+
+def phase_saveres_cityscapes(tmp: str, card: str) -> int:
+    """``cli.test --saveres`` with the FADA checkpoint of train_fada_files,
+    centred (``_centred_teacher``), on cityscapes_train: one palette PNG an
+    image, at the label's 2048x1024, into the folder that
+    cityscapes_self_distill_train reads; each must hold more than one id,
+    differ from the others and decode to the argmax of a plain ``Tester``
+    forward of the same image."""
+    from PIL import Image
+
+    from rnd_semantic_segmentation_torch.data import device_prefetch
+
+    root = _data_root(tmp)
+    pseudo = os.path.join(root, "cityscapes", "soft_labels")
+    out_dir = os.path.join(tmp, "saveres_cityscapes")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def parse(pth):
+        args = test_cli.build_parser().parse_args(
+            ["--saveres", "-c", os.path.join(HERE, "renders", "cityscapes.json"),
+             "-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_adv.yaml"),
+             "DATASETS.DATASET_DIR", root, "DATASETS.TEST", "cityscapes_train",
+             "PSEUDO_DIR", pseudo, "OUTPUT_DIR", out_dir, "resume", pth])
+        return args, load_cfg(args), load_json(args.config_path)
+
+    fada = _needs(os.path.join(tmp, "train_fada_files", "AsppFada-1.pth"), "train_fada_files")
+    args, cfg, render = parse(fada)
+    args, cfg, render = parse(_centred_teacher("saveres_cityscapes", cfg, render, fada,
+                                               os.path.join(out_dir, "teacher.pth")))
+    tester = test_cli.make_tester(cfg, render, saveres=args.saveres,
+                                  logger=_stderr_logger("chip_smoke.saveres_cityscapes"))
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    summary = tester.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _check_no_kernel("saveres_cityscapes")
+    label_dir = os.path.join(pseudo, "inference", "cityscapes_train")
+    n = len(tester.test_loader.dataset)
+    if sorted(os.listdir(label_dir)) != sorted(
+            os.path.basename(p) for p in tester.test_loader.dataset.image_paths):
+        raise AssertionError(f"{label_dir} holds {os.listdir(label_dir)}")
+    # the same images again through a plain forward: each PNG is its argmax
+    palette, moved, pixels, written = render["palette"], 0, 0, {}
+    t0 = time.perf_counter()
+    for batch in device_prefetch(iter(tester.test_loader), 2, tester.device):
+        x = batch["image"].permute(0, 3, 1, 2).contiguous()
+        preds = tester._probs_impl(x, tuple(batch["label"].shape[1:3])).argmax(1).cpu().numpy()
+        for pred, name in zip(preds, batch["name"]):
+            png = Image.open(os.path.join(label_dir, f"{name}.png"))
+            indices = np.asarray(png)
+            if (png.mode != "P" or indices.shape != pred.shape
+                    or png.getpalette()[:len(palette)] != palette):
+                raise AssertionError(f"{name}.png: {png.mode} {indices.shape}, palette "
+                                     f"{png.getpalette()[:6]}...")
+            moved += int((indices != pred).sum())
+            pixels += pred.size
+            written[name] = indices
+    plain = time.perf_counter() - t0
+    ids = [len(np.unique(v)) for v in written.values()]
+    distinct = len({v.tobytes() for v in written.values()})
+    log(f"[saveres_cityscapes] the number of ids in each PNG: {ids}; {distinct} distinct "
+        f"PNGs of {n}")
+    if min(ids) < 2 or distinct != n:
+        raise AssertionError("a PNG holds one id, or two PNGs are equal")
+    log(f"[saveres_cityscapes] cli.test --saveres on {card}: {n} Cityscapes images at "
+        f"{cfg.INPUT.INPUT_SIZE_TEST[0]}x{cfg.INPUT.INPUT_SIZE_TEST[1]}, {n} palette PNGs at "
+        f"{pred.shape[1]}x{pred.shape[0]} in {wall:.2f} s ({wall / n * 1e3:.0f} ms an "
+        f"image; the same pass without the PNGs {plain / n * 1e3:.0f} ms an image); micro "
+        f"mIoU {summary['micro_miou']:.4f}; {moved} of {pixels} pixels differ from the "
+        f"plain forward's argmax")
+    if moved > MAX_TIE_SHARE * pixels:
+        raise AssertionError(f"the PNGs differ from the argmax at {moved} pixels")
+    return launches
+
+
+def phase_train_distill_files(tmp: str, card: str) -> int:
+    """``cli.train_distill`` with configs/deeplabv2_r101_tgt_self_distill.yaml
+    over cityscapes_self_distill_train: the pseudo-labels of
+    saveres_cityscapes, batch 5 at 1024x512,
+    scales 0.5-1.5 with flip, 2 steps from seeded weights."""
+    from rnd_semantic_segmentation_torch.cli import train_distill
+
+    root = _data_root(tmp)
+    label_dir = _needs(os.path.join(root, "cityscapes", "soft_labels", "inference",
+                                    "cityscapes_train"), "saveres_cityscapes")
+    opts = ["-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_tgt_self_distill.yaml"),
+            "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1",
+            "OUTPUT_DIR", os.path.join(tmp, "train_distill_files")]
+    cfg = load_cfg(train_distill.build_parser().parse_args(opts))
+    geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.DATASETS.SOURCE_TRAIN,
+                cfg.SOLVER.BATCH_SIZE, tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN),
+                tuple(cfg.INPUT.INPUT_SCALES_TRAIN), cfg.INPUT.HORIZONTAL_FLIP_PROB_TRAIN,
+                bool(cfg.DISTILL.ONLINE))
+    if geometry != DISTILL_GEOMETRY:
+        raise AssertionError(f"configs/deeplabv2_r101_tgt_self_distill.yaml gives {geometry}, "
+                             f"want {DISTILL_GEOMETRY}")
+    trainer = train_distill.make_trainer("deeplab_distill", cfg, logger=_stderr_logger(
+        "chip_smoke.train_distill_files", logging.INFO))
+    randomize_weights_(trainer.segmentor, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = _check_no_kernel("train_distill_files")
+    steps = FILE_STEPS["distill"]
+    if trainer.state.step != steps or not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"{trainer.state.step} steps, losses {trainer.loss_data}")
+    log(f"[train_distill_files] {steps} steps over {cfg.DATASETS.SOURCE_TRAIN} "
+        f"({len(trainer.train_loader.dataset)} images, labels from {label_dir}): losses "
+        f"{[round(v, 4) for v in trainer.loss_data]}; data share {_data_share(trainer):.1%}")
+    _report_steps("train_distill_files", trainer, card, peak_mib)
+    from PIL import Image
+    ids = set()
+    for name in os.listdir(label_dir):
+        ids |= set(np.unique(np.asarray(Image.open(os.path.join(label_dir, name)))).tolist())
+    trainer.train_loader.set_epoch(1)
+    batch = next(iter(trainer.train_loader))
+    got = set(np.unique(batch["label"]).tolist())
+    log(f"[train_distill_files] a batch {batch['image'].shape}: label ids {sorted(got)}; the "
+        f"pseudo-labels hold {sorted(ids)}")
+    if not got <= ids | {255} or len(got - {255}) < 2:
+        raise AssertionError(f"labels {sorted(got)}: want two or more pseudo-label ids, and "
+                             f"nothing else but 255")
+    return launches
+
+
+def phase_train_attn_files(tmp: str, card: str) -> int:
+    """configs/attn_src_kvasir.yaml on polyp_train files, with the config's
+    threads and then with N worker processes (N = the host's cores less 2):
+    first each loader against a device at PR 9's attn step
+    (``measure_overlap`` over two epochs, the first N batches left out),
+    then two epochs of 6 steps of 20 at 512x512, reported over the second
+    (the first is the ramp: N workers build their first batches at once);
+    then the last checkpoint through ``cli.test`` on bli_val files with the
+    fused MBConv kernel on.  Returns the kernel's launches in that eval."""
+    from rnd_semantic_segmentation_torch.data import (
+        DataLoader,
+        build_collate_fn,
+        build_dataset,
+        measure_overlap,
+    )
+
+    root = _data_root(tmp)
+    procs = max(1, len(os.sched_getaffinity(0)) - 2)
+
+    def opts(workers: int, out_dir: str):
+        return ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+                "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", str(ATTN_FILE_EPOCHS),
+                "SOLVER.CHECKPOINT_PERIOD", "1", "MODEL.FUSED_MBCONV", "True",
+                "DATA_PIPE.WORKER_PROCESSES", str(workers), "OUTPUT_DIR", out_dir]
+
+    def kind(cfg):
+        workers = cfg.DATA_PIPE.WORKER_PROCESSES
+        return f"{workers} worker processes" if workers else f"{cfg.DATA_PIPE.NUM_WORKERS} threads"
+
+    cfg = load_cfg(train_src.build_parser().parse_args(opts(0, tmp)))
+    dataset = build_dataset(cfg, "train")
+    batch = cfg.SOLVER.BATCH_SIZE
+    per_epoch = len(dataset) // batch
+    if (cfg.DATASETS.SOURCE_TRAIN, batch, per_epoch * ATTN_FILE_EPOCHS) != (
+            "polyp_train", 20, FILE_STEPS["attn"]):
+        raise AssertionError(f"{cfg.DATASETS.SOURCE_TRAIN}: {len(dataset)} images, batch {batch}")
+    for workers in (0, procs):
+        cfg = load_cfg(train_src.build_parser().parse_args(opts(workers, tmp)))
+        loader = DataLoader(train_adv._Repeat(dataset, ATTN_FILE_EPOCHS), batch_size=batch,
+                            num_workers=cfg.DATA_PIPE.NUM_WORKERS, worker_processes=workers,
+                            collate_fn=build_collate_fn(cfg), seed=cfg.DATA_PIPE.SEED)
+        try:
+            r = measure_overlap(loader, batch / ATTN_PR9_STEP_MS * 1e3, warmup_batches=procs)
+        finally:
+            loader.close()
+        log(f"[train_attn_files] measure_overlap, {kind(cfg)}, {ATTN_FILE_EPOCHS} epochs "
+            f"against a device at PR 9's step ({ATTN_PR9_STEP_MS} ms a step of {batch}), the "
+            f"first {procs} batches left out: {json.dumps(r)}")
+
+    results, pth = {}, ""
+    for workers in (0, procs):
+        out_dir = os.path.join(tmp, f"train_attn_files_{workers}")
+        cfg = load_cfg(train_src.build_parser().parse_args(opts(workers, out_dir)))
+        trainer = train_src.make_trainer("attn", cfg, logger=_stderr_logger(
+            "chip_smoke.train_attn_files", logging.INFO))
+        try:
+            randomize_weights_(trainer.segmentor, seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _zero_kernel_counts()
+            trainer.train()
+            torch.cuda.synchronize()
+            peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+            _check_no_kernel("train_attn_files")
+        finally:
+            trainer.train_loader.close()
+        if trainer.state.step != FILE_STEPS["attn"] or not all(np.isfinite(trainer.loss_data)):
+            raise AssertionError(f"{trainer.state.step} steps, losses {trainer.loss_data}")
+        times = trainer.meters.meters["time"].series
+        waits = trainer.meters.meters["data"].series
+        log(f"[train_attn_files] loader: {kind(cfg)}; losses "
+            f"{[round(v, 4) for v in trainer.loss_data]}; ms a step "
+            f"{[round(t * 1e3) for t in times]}, of which waiting for data "
+            f"{[round(t * 1e3) for t in waits]}; peak memory {peak_mib:.0f} MiB")
+        # epoch 1 is the ramp; epoch 2 (its start's wait included) is the result
+        rates = [batch * per_epoch / sum(times[e * per_epoch:(e + 1) * per_epoch])
+                 for e in range(ATTN_FILE_EPOCHS)]
+        share = sum(waits[per_epoch:]) / sum(times[per_epoch:])
+        results[kind(cfg)] = (rates, share)
+        pth = os.path.join(out_dir, f"Attn-{ATTN_FILE_EPOCHS}.pth")
+    log(f"[train_attn_files] polyp_train from files on {card}, epochs of {per_epoch} steps of "
+        f"{batch} at {ATTN_SIZE}x{ATTN_SIZE}, the second epoch: " + "; ".join(
+        f"{k}: {rates[-1]:.2f} images/s, data share {share:.1%} (the first epoch, the ramp: "
+        f"{rates[0]:.2f} images/s)" for k, (rates, share) in results.items()))
+
+    args = test_cli.build_parser().parse_args(
+        ["-c", os.path.join(HERE, "renders", "bli.json"),
+         "-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+         "DATASETS.DATASET_DIR", root, "DATASETS.TEST", "bli_val", "MODEL.FUSED_MBCONV",
+         "True", "OUTPUT_DIR", os.path.join(tmp, "eval_bli_files"), "resume", pth])
+    cfg = load_cfg(args)
+    tester = test_cli.make_tester(cfg, load_json(args.config_path),
+                                  logger=_stderr_logger("chip_smoke.eval_bli_files"))
+    images = len(tester.test_loader.dataset)
+    torch.cuda.synchronize()
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    summary = tester.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mbconv.KERNEL_LAUNCHES
+    forwards = -(-images // cfg.TEST.BATCH_SIZE)
+    log(f"[eval_bli_files] {pth} through cli.test on bli_val ({images} BLI images at "
+        f"{ATTN_SIZE}x{ATTN_SIZE}, batch {cfg.TEST.BATCH_SIZE}) on {card}: {wall:.2f} s; "
+        f"fused_mbconv_fwd launched {launches} times over {forwards} forwards; micro mIoU "
+        f"{summary['micro_miou']:.4f}")
+    scalars = [v for v in summary.values() if isinstance(v, float)]
+    if launches != MBCONV_LAUNCHES_PER_FORWARD * forwards or not all(np.isfinite(scalars)):
+        raise AssertionError(f"{launches} launches over {forwards} forwards, summary {summary}")
+    if tester.confusion.sum() != images * ATTN_SIZE ** 2:
+        raise AssertionError(f"confusion matrix {tester.confusion.tolist()}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -1909,6 +2289,15 @@ def main(argv=None) -> int:
         fada_attn_launches = phase_train_fada_attn(tmp, card)
         torch.cuda.empty_cache()
         fada_launches += phase_fada_vgg16(tmp, card)
+        torch.cuda.empty_cache()
+        phase_data_files(tmp, card)
+        file_launches = phase_train_fada_files(tmp, card)
+        torch.cuda.empty_cache()
+        file_launches += phase_saveres_cityscapes(tmp, card)
+        torch.cuda.empty_cache()
+        file_launches += phase_train_distill_files(tmp, card)
+        torch.cuda.empty_cache()
+        bli_launches = phase_train_attn_files(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
@@ -1916,7 +2305,7 @@ def main(argv=None) -> int:
         "launches": serve_launches + train_fwd_launches + fada_gald_fwd,
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_fwd,
-        "launches_fada_deeplab": fada_launches,
+        "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
         **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
                                           "over H*W pixels with the criss-cross mask",
         "shape": list(MAIN_CC_SHAPE),
@@ -1927,20 +2316,22 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
         "launches": train_bwd_launches + fada_gald_bwd, "launches_train": train_bwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_bwd,
-        "launches_fada_deeplab": fada_launches,
+        "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
         **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/mbconv_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
-        "launches": eval_attn_launches + serve_attn_launches + fada_attn_launches,
+        "launches": (eval_attn_launches + serve_attn_launches + fada_attn_launches
+                     + bli_launches),
         "launches_eval_attn": eval_attn_launches,
         "launches_serve_attn": serve_attn_launches,
         "launches_deeplab": deeplab_launches,
         "launches_train_attn": train_attn_launches,
         "launches_eval_attn_trained": eval_attn_trained_launches,
         "launches_fada_attn": fada_attn_launches, "launches_fada_deeplab": fada_launches,
+        "launches_files": file_launches, "launches_eval_bli": bli_launches,
         **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")

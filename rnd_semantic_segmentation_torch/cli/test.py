@@ -7,9 +7,18 @@
         -cfg configs/attn_src_kvasir.yaml -c renders/kvasir.json \\
         DATASETS.TEST synthetic_val resume <weights.pth>
 
-``-c`` names the render config (class names for the confusion matrix).  Runs
-on the CUDA card unless ``MODEL.DEVICE cpu`` is given; one process, one
-device, ``TEST.BATCH_SIZE`` images a batch.
+    python -m rnd_semantic_segmentation_torch.cli.test --saveres \
+        -cfg configs/deeplabv2_r101_adv.yaml -c renders/cityscapes.json \
+        DATASETS.TEST cityscapes_train PSEUDO_DIR <dir> resume <AsppFada-N.pth>
+
+``-c`` names the render config (class names for the confusion matrix, and
+the palette of the PNGs).  ``--saveres`` also writes each prediction as a
+palette PNG to ``PSEUDO_DIR/inference/<DATASETS.TEST>/``: with PSEUDO_DIR
+``<DATASET_DIR>/cityscapes/soft_labels`` and DATASETS.TEST
+``cityscapes_train`` these are the labels of
+``cityscapes_self_distill_train`` (``cli.train_distill``).  Runs on the CUDA
+card unless ``MODEL.DEVICE cpu`` is given; one process, one device,
+``TEST.BATCH_SIZE`` images a batch.
 """
 
 from __future__ import annotations
@@ -44,7 +53,8 @@ def make_tester(cfg, render_config, saveres: bool = False, logger=None) -> Teste
         worker_processes=cfg.DATA_PIPE.WORKER_PROCESSES,
         collate_fn=build_collate_fn(cfg))
     tester = Tester(cfg, logger, test_loader=test_loader,
-                    trainid2name=render_config.get("trainid2name"), saveres=saveres)
+                    trainid2name=render_config.get("trainid2name"), saveres=saveres,
+                    palette=render_config.get("palette"))
     tester._load_checkpoint()
     return tester
 

@@ -1,8 +1,9 @@
 """Augmentation pipeline factory (counterpart of the JAX package's data/augment.py).
 
-The port has the transforms of ``AUG.NAME aspp`` and ``attn`` (train and
-test), and ``gald`` and ``none`` (the identity).  The pra pipeline comes with
-its slice.
+The port has the transforms of ``AUG.NAME aspp``, ``attn`` and ``pra`` (train
+and test), and ``gald`` and ``none`` (the identity).  ``cv2_resize`` is the
+bilinear resize of image and label that the Kvasir-fold and BLI readers apply
+after their transform.
 
 ``attn`` in train mode (the reference's albumentations pipeline, rebuilt on
 PIL and numpy): with probability AUG.PROB at all, then each with its own
@@ -21,9 +22,21 @@ the domain's train size when INPUT.INPUT_SCALES_TRAIN is (1, 1) or else
 ``RandomScale`` and ``RandomCrop(pad_if_needed)``, then
 ``RandomHorizontalFlip`` when INPUT.HORIZONTAL_FLIP_PROB_TRAIN > 0, then
 ``ToArray`` and ``Normalize``.  In test mode: ``Resize`` of the image alone
-to INPUT.INPUT_SIZE_TEST, ``ToArray``, ``Normalize``.  Every random
-transform of one ``Augmenter`` draws from its ``rng``, a ``random.Random``
-(unseeded unless the caller passes one).
+to INPUT.INPUT_SIZE_TEST, ``ToArray``, ``Normalize``.
+
+``pra`` in train mode: a rotation by k x 90 degrees (k in 0..3), a flip by
+the albumentations codes 0, 1, -1 or none, ``ColorJitter(0.2, 0.2, 0.2,
+0.1)``, then with probability 1/2 (and only when both sides exceed 220) a
+220 x 220 crop, at random or centred with equal odds; in both modes then a
+resize to INPUT.TRAINSIZE squared (image bilinear, label nearest through
+float32), the image to float32 / 255 and normalised with the ImageNet mean
+and std.
+
+Every random transform of one ``Augmenter`` draws from its ``rng``, in the
+order and with the calls the JAX package makes on the ``random`` module.
+Without an ``rng`` from the caller that is the ``random`` module's global
+generator, as in the JAX package, so each loader worker process, which
+reseeds it, makes its own draws.
 """
 
 from __future__ import annotations
@@ -35,6 +48,47 @@ import numpy as np
 from PIL import Image
 
 from . import transforms as T
+
+PRA_CROP = 220
+IMAGENET_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
+IMAGENET_STD = np.asarray((0.229, 0.224, 0.225), np.float32)
+
+
+def cv2_resize(image, label, size=(512, 512)):
+    """Bilinear resize of the image and of the label to ``size`` (w, h).  The
+    label goes through a float32 image, bilinear too, as the reference's
+    ``cv2.resize`` does: binary masks come out with fractions at their edges,
+    which the collate truncates."""
+    w, h = size
+    image = np.asarray(T._as_pil(image).resize((w, h), Image.BILINEAR))
+    if label is None:
+        return image, None
+    label = Image.fromarray(np.asarray(label).astype(np.float32)).resize((w, h),
+                                                                        Image.BILINEAR)
+    return image, np.asarray(label)
+
+
+def _pra_random_crop(image, label, rng: random.Random, crop: int = PRA_CROP):
+    """With probability 1/2, when both sides exceed ``crop``: a crop x crop
+    window of image and label, at random or centred with equal odds."""
+    if rng.random() < 0.5 and min(image.shape[:2]) > crop:
+        h, w = image.shape[:2]
+        if rng.random() < 0.5:
+            i, j = rng.randint(0, h - crop), rng.randint(0, w - crop)
+        else:
+            i, j = (h - crop) // 2, (w - crop) // 2
+        image = image[i:i + crop, j:j + crop]
+        label = label[i:i + crop, j:j + crop]
+    return image, label
+
+
+def _pra_resize(image, label, trainsize: int):
+    """The image bilinear and the label nearest (through float32) to
+    trainsize x trainsize; PIL images out."""
+    im = T._as_pil(image).resize((trainsize, trainsize), Image.BILINEAR)
+    lb = Image.fromarray(label.astype(np.float32)).resize((trainsize, trainsize),
+                                                         Image.NEAREST)
+    return im, lb
 
 
 def _motion_blur(image: np.ndarray, ksize: int, rng: random.Random) -> np.ndarray:
@@ -62,7 +116,7 @@ class Augmenter:
         self.cfg = cfg
         self.mode = mode
         self.is_source = is_source
-        self.rng = rng or random.Random()
+        self.rng = random if rng is None else rng
 
     def build_transform(self):
         name = self.cfg.AUG.NAME
@@ -74,7 +128,10 @@ class Augmenter:
             if self.mode == "train":
                 return self.attn_trans
             return lambda image, label: (image, label)
-        raise NotImplementedError(f"AUG.NAME {name!r} is not ported yet")
+        if name == "pra":
+            return self.pra_trans
+        raise ValueError(f"AUG.NAME {name!r}: the pipelines are attn, pra, aspp, gald and "
+                         f"none (the JAX package takes any other name as the identity)")
 
     def attn_trans(self, image, label):
         """One image and label through the train-mode ``attn`` pipeline."""
@@ -99,6 +156,25 @@ class Augmenter:
             if code in (1, -1):
                 image, label = image[:, ::-1].copy(), label[:, ::-1].copy()
         return image, label
+
+    def pra_trans(self, image, label):
+        """One image and label through the ``pra`` pipeline of ``self.mode``."""
+        rng = self.rng
+        image, label = np.asarray(image), np.asarray(label)
+        if self.mode == "train":
+            k = rng.randint(0, 3)
+            if k:
+                image, label = np.rot90(image, k).copy(), np.rot90(label, k).copy()
+            code = rng.choice([0, 1, -1, None])
+            if code in (0, -1):
+                image, label = image[::-1].copy(), label[::-1].copy()
+            if code in (1, -1):
+                image, label = image[:, ::-1].copy(), label[:, ::-1].copy()
+            im, _ = T.ColorJitter(0.2, 0.2, 0.2, 0.1, rng=rng)(image, None)
+            image, label = _pra_random_crop(np.asarray(im), label, rng)
+        im, lb = _pra_resize(image, label, self.cfg.INPUT.TRAINSIZE)
+        image = (np.asarray(im, np.float32) / 255.0 - IMAGENET_MEAN) / IMAGENET_STD
+        return image.astype(np.float32), np.asarray(lb)
 
     def aspp_trans(self):
         cfg, rng = self.cfg, self.rng

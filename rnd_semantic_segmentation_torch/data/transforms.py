@@ -6,11 +6,11 @@ nearest label), RandomScale, RandomCrop (pad_if_needed, label fill 255),
 RandomHorizontalFlip and ColorJitter.  Outputs are HWC float32 images and HxW
 labels, the loader's layout.
 
-The random transforms draw from an explicit ``random.Random`` (``rng``)
-where the JAX package draws from the ``random`` module's global generator,
-in the same order and with the same calls: a ``random.Random(s)`` gives the
-draws that ``random.seed(s)`` gives there.  Without ``rng`` a transform makes
-an unseeded generator of its own.
+The random transforms draw from ``rng``, in the order and with the calls of
+the JAX package, which draws from the ``random`` module's global generator:
+a ``random.Random(s)`` gives the draws that ``random.seed(s)`` gives there.
+Without ``rng`` a transform draws from that global generator too, which each
+loader worker process reseeds.
 """
 
 from __future__ import annotations
@@ -80,7 +80,7 @@ class RandomScale:
         self.scale = scale
         self.size = size
         self.resize_label = resize_label
-        self.rng = rng or random.Random()
+        self.rng = random if rng is None else rng
 
     def __call__(self, image, label):
         image = _as_pil(image)
@@ -102,7 +102,7 @@ class RandomCrop:
         self.pad_if_needed = pad_if_needed
         self.fill = fill
         self.label_fill = label_fill
-        self.rng = rng or random.Random()
+        self.rng = random if rng is None else rng
 
     def __call__(self, image, label):
         image = _as_pil(image)
@@ -127,7 +127,7 @@ class RandomCrop:
 class RandomHorizontalFlip:
     def __init__(self, p: float = 0.5, rng: Optional[random.Random] = None):
         self.p = p
-        self.rng = rng or random.Random()
+        self.rng = random if rng is None else rng
 
     def __call__(self, image, label):
         if self.rng.random() < self.p:
@@ -149,7 +149,7 @@ class ColorJitter:
         self.contrast = contrast
         self.saturation = saturation
         self.hue = hue
-        self.rng = rng or random.Random()
+        self.rng = random if rng is None else rng
 
     def __call__(self, image, label):
         image = _as_pil(image)

@@ -21,15 +21,18 @@ batches go to the device through the loader's prefetch, the argmax, the
 per-class areas and the confusion matrix are computed there, and their small
 results are fetched once after the loop; the summary (macro and micro
 mIoU/F1) is logged and ``<family>_confusion_matrix.json`` is written to
-OUTPUT_DIR.  Pseudo-label export (``saveres``) and quantized eval raise until
-their slices are ported; the confusion-matrix heat map and multi-device eval
-are not ported.
+OUTPUT_DIR.  With ``saveres`` each image's argmax is also written as a
+palette PNG (the render config's ``palette``) to
+``PSEUDO_DIR/inference/<DATASETS.TEST>/<name>.png``, at the label's size: the
+pseudo-labels of self-distillation.  Quantized eval raises until its slice
+is ported; the confusion-matrix heat map and multi-device eval are not
+ported.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,20 +46,23 @@ from ..train.segmentor import Segmentor
 from ..utils import dump_json, resolve_device
 from . import tta
 from .metrics import AverageMeter, confusion_matrix, intersection_and_union
+from .palette import save_pseudo_label
 
 
 class Tester:
     __test__ = False  # not a pytest class
 
     def __init__(self, cfg, logger, test_loader=None,
-                 trainid2name: Optional[Dict] = None, saveres: bool = False):
-        if saveres:
-            raise NotImplementedError(
-                "--saveres (pseudo-label PNG export) comes with the self-distill slice")
+                 trainid2name: Optional[Dict] = None, saveres: bool = False,
+                 palette: Optional[Sequence[int]] = None):
+        if saveres and palette is None:
+            raise ValueError("saveres writes palette PNGs: pass the render config's palette")
         self.cfg = cfg
         self.logger = logger
         self.test_loader = test_loader
         self.trainid2name = trainid2name or {}
+        self.saveres = saveres
+        self.palette = palette
         self.device = resolve_device(cfg.MODEL.DEVICE)
         self.spec = build_segmentor(cfg)
         self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES)
@@ -132,6 +138,10 @@ class Tester:
             x = batch["image"].permute(0, 3, 1, 2).contiguous()
             label = batch["label"]
             pred = self._probs_impl(x, tuple(label.shape[1:3])).argmax(dim=1)
+            if self.saveres:
+                for mask, name in zip(pred.cpu().numpy(), batch["name"]):
+                    save_pseudo_label(mask, self.palette, cfg.PSEUDO_DIR,
+                                      cfg.DATASETS.TEST, name)
             pending.append((torch.stack(intersection_and_union(pred, label, nc, ignore)),
                             confusion_matrix(pred, label, nc, ignore)))
 

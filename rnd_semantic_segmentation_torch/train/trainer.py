@@ -6,7 +6,8 @@ Loop semantics kept from the reference trainers:
   * a log line every 20 iterations with windowed meters; ``data`` is the time
     a step waited for its batch and ``time`` the whole step;
   * a checkpoint every SOLVER.CHECKPOINT_PERIOD epochs, ``{Prefix}-{epoch}.pth``,
-    pruned to SOLVER.KEEP_CHECKPOINTS;
+    pruned to SOLVER.KEEP_CHECKPOINTS (the source trainer only: FADA keeps
+    every ``{Prefix}Fada-{epoch}.pth``);
   * the step's series dumped to ``<family>_chart_params.json`` (FADA:
     ``<family>_fada_chart_params.json``, six series);
   * resume from ``cfg.resume`` (a file, or ``latest`` in OUTPUT_DIR);
@@ -119,6 +120,14 @@ class Trainer:
                                      device=self.device):
             yield (batch,)
 
+    def _prune_checkpoints(self) -> None:
+        """Before each save: prune to keep-1, so that retention lands at
+        SOLVER.KEEP_CHECKPOINTS (0 keeps all) after it, but never below one
+        complete checkpoint while the new one is written."""
+        keep = self.cfg.SOLVER.KEEP_CHECKPOINTS
+        if keep > 0:
+            prune_checkpoints(self.cfg.OUTPUT_DIR, self.ckpt_prefix, max(keep - 1, 1))
+
     def _peak_memory_mb(self) -> float:
         if self.device.type != "cuda":
             return 0.0
@@ -161,12 +170,7 @@ class Trainer:
                         f"iter: {iteration}  {meters}  lr: {metrics['lr']:.6f}  "
                         f"max mem: {self._peak_memory_mb():.0f}")
             if epoch % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
-                # prune to keep-1 before the save, so that retention lands at
-                # SOLVER.KEEP_CHECKPOINTS (0 keeps all) after it, but never
-                # below one complete checkpoint while the new one is written
-                if cfg.SOLVER.KEEP_CHECKPOINTS > 0:
-                    prune_checkpoints(cfg.OUTPUT_DIR, self.ckpt_prefix,
-                                      max(cfg.SOLVER.KEEP_CHECKPOINTS - 1, 1))
+                self._prune_checkpoints()
                 path = checkpoint_name(cfg.OUTPUT_DIR, self.ckpt_prefix, epoch)
                 save_checkpoint(path, self.ckpt_modules, self.state, epoch)
                 self.logger.info(f"[Saving Snapshot:] {path}")
@@ -189,7 +193,9 @@ class FadaTrainer(Trainer):
     ``SEED + 2``, the step's drop-connect generator from ``SEED + 3``.  A
     checkpoint ``{Prefix}Fada-{epoch}.pth`` holds the segmentor's parts and
     ``model_D``, each with its optimizer, and ``epoch`` and ``step`` (the
-    reference's combined layout); ``resume`` restores all of them."""
+    reference's combined layout); ``resume`` restores all of them.  Every
+    checkpoint is kept, whatever SOLVER.KEEP_CHECKPOINTS says, as the JAX
+    ``FadaTrainer`` keeps them."""
 
     CHART = {"learning rate": "lr", "discriminator learning rate": "lr_D",
              "segmentation loss": "loss_seg", "target adversarial loss": "loss_adv_tgt",
@@ -216,6 +222,10 @@ class FadaTrainer(Trainer):
     @property
     def loss_data(self):
         return self.series["loss_seg"]
+
+    def _prune_checkpoints(self) -> None:
+        """Prunes nothing: the JAX ``FadaTrainer`` keeps every
+        ``{Prefix}Fada-N`` checkpoint whatever SOLVER.KEEP_CHECKPOINTS says."""
 
     def _batches(self, epoch: int):
         streams = []

@@ -59,6 +59,8 @@ from rnd_semantic_segmentation_torch.models.efficientnet import (
 )
 from rnd_semantic_segmentation_torch.train.segmentor import Segmentor
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 SIZE = 64
 NC = 2
 MODEL = "attn_efficientnet-b0"
@@ -138,6 +140,14 @@ def _tester(jax_variables, *opts):
     for name, module in tester.spec.modules.items():
         load_part(module, sds[name], name)
     return tester
+
+
+@pytest.fixture(scope="module")
+def jax_tester(images, tmp_path_factory):
+    """One JAX ``Tester`` for the module: its ``_probs`` is jitted per
+    instance, so each new Tester would trace and compile the forward again."""
+    return JaxTester(jax_cfg(OUTPUT_DIR=str(tmp_path_factory.mktemp("jax_attn"))),
+                     _OneBatch(images), logging.getLogger("jax_attn"))
 
 
 @pytest.fixture(scope="module")
@@ -352,18 +362,15 @@ def test_attn_training_waits_for_its_slice(images):
 
 @pytest.mark.parametrize("fused", [False, True], ids=["unfused", "fused"])
 def test_probabilities_of_the_tester_head(fused, jax_variables, port_tester, fused_tester,
-                                          images, tmp_path):
-    jt = JaxTester(jax_cfg(OUTPUT_DIR=str(tmp_path)), _OneBatch(images),
-                   logging.getLogger("jax_attn"))
-    jt.variables = jax_variables
-    ref = jt._probs(jt.variables, jnp.asarray(images), (SIZE, SIZE))
+                                          images, jax_tester):
+    ref = jax_tester._probs(jax_variables, jnp.asarray(images), (SIZE, SIZE))
     tester = fused_tester if fused else port_tester
     probs = tester._probs_impl(_nchw(images), (SIZE, SIZE))
     assert probs.shape == (2, NC, SIZE, SIZE) and probs.dtype == torch.float32
     _assert_probs_agree(_nhwc(probs), ref)
 
 
-def test_same_pth_in_both_packages(images, tmp_path):
+def test_same_pth_in_both_packages(images, tmp_path, jax_tester):
     cfg = port_cfg("resume", str(tmp_path / "Attn-seeded.pth"))
     seeded = Tester(cfg, logging.getLogger("torch_attn"))
     randomize_weights_(seeded.segmentor, seed=5)
@@ -376,7 +383,7 @@ def test_same_pth_in_both_packages(images, tmp_path):
     jt = JaxTester(jax_cfg(OUTPUT_DIR=str(tmp_path), resume=cfg.resume),
                    _OneBatch(images), logging.getLogger("jax_attn"))
     jt._load_checkpoint()
-    ref = jt._probs(jt.variables, jnp.asarray(images), (SIZE, SIZE))
+    ref = jax_tester._probs(jt.variables, jnp.asarray(images), (SIZE, SIZE))
     _assert_probs_agree(_nhwc(probs), ref)
 
 

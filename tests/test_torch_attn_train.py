@@ -95,6 +95,8 @@ from rnd_semantic_segmentation_torch.train.steps import (
     step_seed,
 )
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "attn_src_kvasir.yaml")
 SIZE, NC = 64, 2

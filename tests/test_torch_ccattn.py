@@ -39,6 +39,8 @@ from rnd_semantic_segmentation_tpu.ops.ccattn import (
 )
 from rnd_semantic_segmentation_torch.ops import ccattn
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 # (B, H, W, C): square, rectangular and odd, the serving aspect, and H=1
 # (a column branch that is fully masked inside the joint softmax)
 SHAPES = [(2, 8, 8, 16), (1, 7, 11, 32), (2, 16, 32, 64), (1, 1, 5, 16)]

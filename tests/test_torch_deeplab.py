@@ -72,6 +72,8 @@ from rnd_semantic_segmentation_torch.train.segmentor import Segmentor
 from rnd_semantic_segmentation_torch.train.state import TrainState, make_optimizers
 from rnd_semantic_segmentation_torch.train.steps import make_src_train_step
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "deeplabv2_r101_src.yaml")
 SIZE, NC = 64, 5

@@ -53,6 +53,8 @@ from rnd_semantic_segmentation_torch.serve.server import (
 )
 from rnd_semantic_segmentation_torch.utils import load_json
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 SIZE, NC, IMAGES, BATCH = 64, 2, 6, 2
 MODEL = "attn_efficientnet-b0"
 TIE = 2e-4  # twice the probability tolerance of tests/test_torch_attn.py
@@ -248,16 +250,16 @@ def test_gald_goes_through_the_same_loop(tmp_path):
 def test_what_waits_raises(workdir, monkeypatch):
     log = logging.getLogger("torch_eval")
     cfg = load_cfg(_port_args(workdir, workdir / "raises"))
-    with pytest.raises(NotImplementedError, match="saveres"):
+    with pytest.raises(ValueError, match="palette"):  # --saveres writes palette PNGs
         Tester(cfg, log, saveres=True)
     with pytest.raises(ValueError, match="test_loader"):
         Tester(cfg, log).test()
     quant = load_cfg(_port_args(workdir, workdir / "raises", "TEST.QUANT", "int8"))
     with pytest.raises(NotImplementedError, match="QUANT"):
         test_cli.make_tester(quant, RENDER, logger=log).test()
-    pra = load_cfg(_port_args(workdir, workdir / "raises", "AUG.NAME", "pra"))
-    with pytest.raises(NotImplementedError, match="pra"):
-        Augmenter(pra, mode="train").build_transform()
+    unknown = load_cfg(_port_args(workdir, workdir / "raises", "AUG.NAME", "exotic"))
+    with pytest.raises(ValueError, match="exotic"):
+        Augmenter(unknown, mode="train").build_transform()
     image = np.zeros((4, 4, 3), np.uint8)
     assert Augmenter(cfg, mode="test").build_transform()(image, None)[0] is image
 

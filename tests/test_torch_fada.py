@@ -99,6 +99,8 @@ from rnd_semantic_segmentation_torch.train.fada import (
 from rnd_semantic_segmentation_torch.train.segmentor import Segmentor
 from rnd_semantic_segmentation_torch.train.state import TrainState, apply_updates, make_optimizers
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIG = os.path.join(REPO, "configs", "deeplabv2_r101_adv.yaml")
 NC = 3

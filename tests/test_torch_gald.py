@@ -49,6 +49,8 @@ from rnd_semantic_segmentation_torch.configs import get_default_cfg
 from rnd_semantic_segmentation_torch.eval.tester import Tester
 from rnd_semantic_segmentation_torch.models.build import randomize_weights_
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 SIZE = 224  # the smallest input GALD takes (the /32 map must survive two VALID stride-2 convs)
 NC = 3
 PROB_TOL = 1e-4
@@ -101,6 +103,14 @@ def jax_variables(images):
     rng = np.random.RandomState(1)
     return jax.tree_util.tree_map_with_path(lambda p, l: _randomise(p, l, rng),
                                             jax.tree.map(np.asarray, init))
+
+
+@pytest.fixture(scope="module")
+def jax_tester(images, tmp_path_factory):
+    """One JAX ``Tester`` for the module: its ``_probs`` is jitted per
+    instance, so each new Tester would trace and compile the forward again."""
+    return JaxTester(jax_cfg(OUTPUT_DIR=str(tmp_path_factory.mktemp("jax_gald"))),
+                     _OneBatch(images), logging.getLogger("jax_gald"))
 
 
 @pytest.fixture(scope="module")
@@ -208,17 +218,14 @@ def test_hardnet68_taps(jax_variables, port_tester, images):
         _assert_close_to_max(_nhwc(t), r, 1e-4)
 
 
-def test_whole_slice_probabilities(jax_variables, port_tester, images, tmp_path):
-    jt = JaxTester(jax_cfg(OUTPUT_DIR=str(tmp_path)), _OneBatch(images),
-                   logging.getLogger("jax_gald"))
-    jt.variables = jax_variables
-    ref = jt._probs(jt.variables, jnp.asarray(images), (SIZE, SIZE))
+def test_whole_slice_probabilities(jax_variables, port_tester, images, jax_tester):
+    ref = jax_tester._probs(jax_variables, jnp.asarray(images), (SIZE, SIZE))
     probs = port_tester._probs_impl(_nchw(images), (SIZE, SIZE))
     assert probs.shape == (2, NC, SIZE, SIZE)
     _assert_probs_agree(_nhwc(probs), ref)
 
 
-def test_same_pth_in_both_packages(images, tmp_path):
+def test_same_pth_in_both_packages(images, tmp_path, jax_tester):
     cfg = port_cfg("resume", str(tmp_path / "Gald-seeded.pth"))
     seeded = Tester(cfg, logging.getLogger("torch_gald"))
     randomize_weights_(seeded.segmentor, seed=5)
@@ -231,5 +238,5 @@ def test_same_pth_in_both_packages(images, tmp_path):
     jt = JaxTester(jax_cfg(OUTPUT_DIR=str(tmp_path), resume=cfg.resume),
                    _OneBatch(images), logging.getLogger("jax_gald"))
     jt._load_checkpoint()
-    ref = jt._probs(jt.variables, jnp.asarray(images), (SIZE, SIZE))
+    ref = jax_tester._probs(jt.variables, jnp.asarray(images), (SIZE, SIZE))
     _assert_probs_agree(_nhwc(probs), ref)

@@ -33,6 +33,8 @@ from rnd_semantic_segmentation_torch.ops.mbconv import (
     fused_mbconv_core_plain,
 )
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 TOL = 1e-4
 SHAPES = [((2, 16, 16, 8), 3), ((1, 12, 20, 16), 5), ((2, 8, 8, 24), 3)]  # NHWC, k
 # every fused shape of an EfficientNet-B2 forward at 512x512, as (C, H=W, k)

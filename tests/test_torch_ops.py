@@ -16,6 +16,8 @@ from rnd_semantic_segmentation_tpu.ops import max_pool as jax_max_pool
 from rnd_semantic_segmentation_tpu.ops import resize_bilinear as jax_resize
 from rnd_semantic_segmentation_torch.ops import max_pool, resize_bilinear
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 
 def _nchw(a):
     return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 3, 1, 2)))

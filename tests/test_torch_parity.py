@@ -24,6 +24,8 @@ from rnd_semantic_segmentation_tpu.models.resnet import ResNet
 
 from torch_ref import load_pranet, load_ref_module, to_nchw, torch_state_dict_np
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 TOL = 2e-3  # north-star parity budget is 1e-3 on logits; activations compound
 
 

@@ -35,6 +35,8 @@ from rnd_semantic_segmentation_torch.serve.server import (
     _make_handler,
 )
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 SIZE = 224
 NC = 3
 PALETTE = [0, 0, 0, 255, 0, 0, 0, 255, 0]

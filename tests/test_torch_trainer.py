@@ -23,6 +23,8 @@ from rnd_semantic_segmentation_torch.cli import train_src
 from rnd_semantic_segmentation_torch.cli.common import load_cfg
 from rnd_semantic_segmentation_torch.eval.tester import Tester
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EPOCHS, STEPS_PER_EPOCH = 3, 2
 
@@ -154,19 +156,45 @@ def test_prune_checkpoints(tmp_path):
     ("DIST.NUM_DEVICES", "4"),
     ("DIST.SPATIAL_PARALLEL", "2"),
     ("DIST.INITIALIZE", "True"),
-    ("DATA_PIPE.WORKER_PROCESSES", "2"),
     ("DATA_PIPE.NATIVE_DECODE", "True"),
     ("SOLVER.REMAT", "full"),
     ("MODEL.REMAT_BLOCKS", "True"),
     ("DEBUG.CHECKIFY", "True"),
-    ("DATASETS.SOURCE_TRAIN", "gta5_train"),
     ("MODEL.NAME", "pranet_res2net50"),
-    ("AUG.NAME", "pra"),
 ], ids=lambda o: o[0])
 def test_every_knob_that_waits_raises(tmp_path, opts):
     with pytest.raises(NotImplementedError):
         train_src.make_trainer("gald", _cfg(tmp_path, *opts))
     assert not list(tmp_path.glob("*.pth"))
+
+
+@pytest.mark.parametrize("opts", [
+    ("DATA_PIPE.WORKER_PROCESSES", "2"),
+    ("DATASETS.SOURCE_TRAIN", "gta5_train"),
+    ("AUG.NAME", "pra"),
+], ids=lambda o: o[0])
+def test_knobs_the_data_slice_ported_reach_the_trainer(tmp_path, opts):
+    """What waited for the data slice builds a trainer now: worker processes
+    behind its loader, the GTA5 reader on files, the pra transform."""
+    from rnd_semantic_segmentation_torch.data import datasets, trees
+
+    trees.write_dataset_trees(str(tmp_path), seed=0, trees={"gta5": (2, 1, (64, 48))})
+    trainer = train_src.make_trainer("gald", _cfg(tmp_path, "DATASETS.DATASET_DIR",
+                                                  str(tmp_path), "INPUT.TRAINSIZE", "32",
+                                                  *opts))
+    loader = trainer.train_loader
+    try:
+        batch = next(iter(loader))
+        if opts[0] == "DATA_PIPE.WORKER_PROCESSES":
+            assert loader._pool is not None and len(loader._pool._procs) == 2
+            assert batch["image"].shape == (2, 224, 224, 3)
+        elif opts[0] == "DATASETS.SOURCE_TRAIN":
+            assert isinstance(loader.dataset, datasets.GTA5FoldDataSet) and len(loader) == 1
+            assert batch["image"].shape == (2, 48, 64, 3) and batch["image"].max() <= 1
+        else:
+            assert batch["image"].shape == (2, 32, 32, 3) and batch["image"].min() < 0
+    finally:
+        loader.close()
 
 
 def test_cuda_is_the_default_device_and_raises_without_a_card(tmp_path):

@@ -33,6 +33,8 @@ from rnd_semantic_segmentation_torch.models.aspp import VGG16FeatureExtractor
 from rnd_semantic_segmentation_torch.models.build import build_segmentor, randomize_weights_
 from rnd_semantic_segmentation_torch.train.segmentor import Segmentor
 
+torch.set_num_threads(2)  # six test workers share the host's cores
+
 NAME, NC = "deeplab_vgg16", 5
 CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
 
