@@ -125,18 +125,51 @@ no result line on any failure.  Phases, each of which raises:
               20 at 512x512 with each, the second reported; then the last
               checkpoint through ``cli.test`` on bli_val files
               (renders/bli.json) with MODEL.FUSED_MBCONV on: 17 launches of
-              kernel #3 a forward.
-No hand kernel lies on the DeepLab path or on the attn training path, FADA's
-and self-distillation's included: their phases check that none of the three
-launched.
+              kernel #3 a forward;
+ 21. train_pranet  configs/pranet_src_polyp.yaml (pranet_res2net50: Res2Net50-v1b
+              26w x 4s, channel 32, 2 classes, full width and depth, seeded
+              weights) on polyp_train files through the source-training CLI's
+              parser and ``Trainer``: an epoch of 7 batches of 16, each
+              stepped at the three rates (sides 256, 352 and 448), Adam at
+              1/8 of the gradual warm-up's LR, the 0.5 clamp, the structure
+              loss on the four maps, the pra augmentation, float32, TF32 off;
+              the loss finite, 3 optimizer steps a batch, every parameter and
+              BN running statistic moved, no hand kernel; ms a batch and a
+              step at each side, the data share, peak memory, the
+              checkpoint's load into ``Tester``, a 352 step split into
+              forward, backward and optimizer, and the kernels of a step at
+              256 and at 352 under ``torch.profiler``;
+ 22. eval_pranet  that PraNet-1.pth through the test CLI's function on polyp_val
+              and bli_val files, batch 1 at 352; the head on two images
+              against its plain recomputation from map 2 (sigmoid, batch
+              min-max, stack); a forward's host and device time; a seeded
+              pranet_res2net50 at 64x64 on the card against the CPU;
+ 23. serve_pranet  the daemon on that checkpoint at 352x352, 16 PNG requests
+              from 8 threads; the largest dispatched batch of masks against
+              ``Tester._probs_impl`` on the same padded bucket (the head's
+              min-max spans the bucket);
+ 24. train_fada_pranet  configs/pranet_adv_polyp_bli.yaml: polyp_train ->
+              bli_train files, 8 + 8 images a step at 352, an epoch of 15
+              steps, D on the 2048-channel layer4 tap; the four losses
+              finite, every parameter of the model and of D moved, no hand
+              kernel; the kernels of a step under ``torch.profiler``; then
+              PraNetFada-1.pth through the test CLI's function on bli_val.
+The PraNet phases set INPUT.SOURCE_INPUT_SIZE_TRAIN and
+TARGET_INPUT_SIZE_TRAIN to 352 squared besides the data, the output and the
+run's length: the configs leave them at their defaults, to which the
+readers resize each item after the pra transform (ROADMAP Queue 3).
+No hand kernel lies on the DeepLab path, on the attn training path or on the
+PraNet paths, FADA's and self-distillation's included: their phases check
+that none of the three launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
 phases (kernels, kernels_bwd, kernels_mbconv, serve, train, eval_attn,
 serve_attn, train_deeplab, eval_deeplab, serve_deeplab, train_attn,
 train_fada_deeplab, train_fada_gald, train_fada_attn, fada_vgg16, data_files,
-train_fada_files, saveres_cityscapes, train_distill_files, train_attn_files;
-device and build always run) and prints no result lines: an aid while
+train_fada_files, saveres_cityscapes, train_distill_files, train_attn_files,
+train_pranet, eval_pranet, serve_pranet, train_fada_pranet; device and build
+always run) and prints no result lines: an aid while
 working on one path.  A phase before data_files that evaluates or serves a
 checkpoint makes a seeded one when the phase that trains it did not run; a
 phase after it that reads another's output (files, a checkpoint,
@@ -253,15 +286,33 @@ ATTN_FADA_GEOMETRY = (ATTN_MODEL, 2, 20, (ATTN_SIZE, ATTN_SIZE), (ATTN_SIZE, ATT
 FADA_STEPS = {"deeplab": 6, "gald": 4, "attn": 4, "vgg16": 2}
 FADA_EVAL_IMAGES = 4
 # the paths on files (DATA_TREES): steps of FADA (12 GTA5 images, 4 a step),
-# of the distillation (12 Cityscapes images, 5 a step) and of attn (two
-# epochs of 120 Kvasir images, 20 a step)
-FILE_STEPS = {"fada": 3, "distill": 2, "attn": 12}
+# of the distillation (12 Cityscapes images, 5 a step), of attn (two
+# epochs of 120 Kvasir images, 20 a step) and of pranet's FADA (120 Kvasir
+# images, 8 a step)
+FILE_STEPS = {"fada": 3, "distill": 2, "attn": 12, "pranet_fada": 15}
 ATTN_FILE_EPOCHS = 2
 # configs/deeplabv2_r101_tgt_self_distill.yaml as (MODEL.NAME, NUM_CLASSES,
 # SOURCE_TRAIN, BATCH_SIZE, SOURCE_INPUT_SIZE_TRAIN, INPUT_SCALES_TRAIN,
 # HORIZONTAL_FLIP_PROB_TRAIN, DISTILL.ONLINE)
 DISTILL_GEOMETRY = ("deeplab_resnet101", 19, "cityscapes_self_distill_train", 5, (1024, 512),
                     (0.5, 1.5), 0.5, False)
+# the PraNet paths: configs/pranet_src_polyp.yaml as (MODEL.NAME, NUM_CLASSES,
+# SOLVER.BATCH_SIZE, INPUT.TRAINSIZE, INPUT_SIZE_TEST, TEST.BATCH_SIZE, BASE_LR,
+# AUG.NAME), the sides of its three rates, and pranet_adv_polyp_bli.yaml as the
+# FADA geometry (each step takes BATCH_SIZE // 2 images of each domain)
+PRANET_SIDE = 352
+PRANET_GEOMETRY = ("pranet_res2net50", 2, 16, PRANET_SIDE, (PRANET_SIDE, PRANET_SIDE), 1,
+                   1e-4, "pra")
+PRANET_RATE_SIDES = (256, 352, 448)
+PRANET_FADA_GEOMETRY = ("pranet_res2net50", 2, 16, (PRANET_SIDE, PRANET_SIDE),
+                        (PRANET_SIDE, PRANET_SIDE), 1e-4, 1e-4)
+# the head against its plain recomputation on the same device: the same
+# operations in the same order, up to the resize's float32 rounding
+PRANET_HEAD_TOLERANCE = 1e-5
+# the card against the CPU: a seeded pranet_res2net50 at 64x64 in eval mode,
+# the maps within this share of their largest magnitude (float32 sums in
+# other orders through about 60 convolutions; cuDNN without TF32)
+PRANET_CPU_TOLERANCE = 1e-4
 # PR 9's attn step of 20 at 512x512 on the card (NVIDIA H100 80GB HBM3, 700 W)
 ATTN_PR9_STEP_MS = 273.8
 # the card against the CPU: a seeded deeplab_resnet18 at 64x64, logits within
@@ -2246,6 +2297,340 @@ def phase_train_attn_files(tmp: str, card: str) -> int:
     return launches
 
 
+def _pranet_opts(config: str, root: str, out_dir: str, *more):
+    """A PraNet config with only the data, the output, the run's length and
+    the readers' resize set: the Kvasir-fold and BLI readers resize each
+    item, after the pra transform, to INPUT.SOURCE/TARGET_INPUT_SIZE_TRAIN,
+    which both configs leave at the defaults (1280x720, 1024x512); at
+    TRAINSIZE squared the resize is the identity (ROADMAP Queue 3)."""
+    side = f"({PRANET_SIDE}, {PRANET_SIDE})"
+    return ["-cfg", os.path.join(HERE, "configs", config), "DATASETS.DATASET_DIR", root,
+            "INPUT.SOURCE_INPUT_SIZE_TRAIN", side, "INPUT.TARGET_INPUT_SIZE_TRAIN", side,
+            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1", "OUTPUT_DIR", out_dir,
+            *more]
+
+
+def _check_pranet_geometry(cfg, config: str) -> None:
+    geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
+                cfg.INPUT.TRAINSIZE, tuple(cfg.INPUT.INPUT_SIZE_TEST), cfg.TEST.BATCH_SIZE,
+                cfg.SOLVER.BASE_LR, cfg.AUG.NAME)
+    if geometry != PRANET_GEOMETRY:
+        raise AssertionError(f"configs/{config} gives {geometry}, want {PRANET_GEOMETRY}")
+
+
+def _pranet_checkpoint(tmp: str) -> str:
+    return _needs(os.path.join(tmp, "train_pranet", "PraNet-1.pth"), "train_pranet")
+
+
+def phase_train_pranet(tmp: str, card: str) -> int:
+    """configs/pranet_src_polyp.yaml on polyp_train files through
+    ``cli.train_src``'s parser and ``Trainer``: an epoch of batches of 16,
+    each taken at the three rates (256, 352 and 448), from seeded weights."""
+    from rnd_semantic_segmentation_torch.train.trainer import MULTISCALE_RATES, rate_side
+
+    root = _data_root(tmp)
+    out_dir = os.path.join(tmp, "train_pranet")
+    opts = _pranet_opts("pranet_src_polyp.yaml", root, out_dir)
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    _check_pranet_geometry(cfg, "pranet_src_polyp.yaml")
+    sides = [rate_side(cfg.INPUT.TRAINSIZE, r) for r in MULTISCALE_RATES]
+    if sides != list(PRANET_RATE_SIDES):
+        raise AssertionError(f"rate sides {sides}, want {PRANET_RATE_SIDES}")
+    logger = _stderr_logger("chip_smoke.train_pranet", logging.INFO)
+    trainer = train_src.make_trainer("pranet", cfg, logger=logger)
+    segmentor = trainer.segmentor
+    randomize_weights_(segmentor, seed=0)
+    model = trainer.spec.modules["model"]
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    stats = {n: b.clone() for n, b in model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))}
+    batch = cfg.SOLVER.BATCH_SIZE
+    batches = len(trainer.train_loader.dataset) // batch
+    log(f"[train_pranet] {cfg.MODEL.NAME}: {sum(p.numel() for p in model.parameters())} "
+        f"parameters, {len(stats) // 2} BatchNorms on batch statistics (MODEL.FREEZE_BN "
+        f"{cfg.MODEL.FREEZE_BN} does not reach the family), seeded weights; "
+        f"{cfg.DATASETS.SOURCE_TRAIN} ({len(trainer.train_loader.dataset)} images), "
+        f"{batches} batches of {batch}, rates {MULTISCALE_RATES} -> sides {sides}")
+
+    per_side, seen = {}, []
+    step = trainer.step_fn
+
+    def timed(b, epoch0):
+        side = int(b["image"].shape[1])
+        seen.append(side)
+        t0 = time.perf_counter()
+        out = step(b, epoch0)  # ends in a device sync
+        per_side.setdefault(side, []).append(time.perf_counter() - t0)
+        return out
+
+    trainer.step_fn = timed
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = _check_no_kernel("train_pranet")
+    trainer.step_fn = step
+
+    steps = trainer.state.step
+    if (len(trainer.loss_data) != batches or steps != 3 * batches
+            or seen != sides * batches):
+        raise AssertionError(f"{steps} steps over {len(trainer.loss_data)} batches at sides "
+                             f"{seen}; want 3 a batch over {batches} at {sides}")
+    if not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"losses {trainer.loss_data}")
+    lr = trainer.state.optimizers["model"].param_groups[0]["lr"]
+    log(f"[train_pranet] {steps} optimizer steps over {batches} batches: losses (the "
+        f"448 step's) {[round(v, 4) for v in trainer.loss_data]}; LR {trainer.lr_data[0]:.3g}, "
+        f"the model's {lr:.3g} (1/8)")
+    if abs(lr - cfg.SOLVER.BASE_LR / 8) > 1e-12:
+        raise AssertionError(f"the model's LR is {lr}, want BASE_LR / 8")
+    moved = [(p.detach() - before[n]).abs().max().item() for n, p in model.named_parameters()]
+    buffers = dict(model.named_buffers())
+    still = [n for n, b in stats.items() if torch.equal(buffers[n], b)]
+    log(f"[train_pranet]   {sum(m > 0 for m in moved)} of {len(moved)} parameters moved, by "
+        f"at most {max(moved):.3e}; BN running statistics moved: {len(stats) - len(still)} "
+        f"of {len(stats)}")
+    if not all(m > 0 and np.isfinite(m) for m in moved) or still:
+        raise AssertionError(f"a parameter or statistic did not move: {still[:5]}")
+
+    times = trainer.meters.meters["time"].series[1:]
+    batch_ms = float(np.median(times)) * 1e3
+    side_ms = {side: float(np.median(v[1:])) * 1e3 for side, v in per_side.items()}
+    log(f"[train_pranet] on {card}: {batch_ms:.1f} ms a batch of {batch} at three rates "
+        f"(median of batches 2..{batches}; the first "
+        f"{trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
+        f"{batch / batch_ms * 1e3:.2f} images/s; ms a step by side (median of batches "
+        f"2..): " + ", ".join(f"{s}: {side_ms[s]:.1f}" for s in sides)
+        + f"; data share {_data_share(trainer):.1%}; peak memory {peak_mib:.0f} MiB; "
+        f"float32, TF32 off")
+
+    # the checkpoint loads back into Tester through `resume latest`
+    tester = Tester(load_cfg(train_src.build_parser().parse_args(opts + ["resume", "latest"])),
+                    logger)
+    tester._load_checkpoint()
+    trained = trainer.segmentor.state_dict()
+    for name, value in tester.segmentor.state_dict().items():
+        if not torch.equal(value, trained[name]):
+            raise AssertionError(f"{name} differs between the trainer and its checkpoint")
+    pth = _pranet_checkpoint(tmp)
+    log(f"[train_pranet] {pth} ({os.path.getsize(pth) / 2 ** 20:.0f} MiB) loads into Tester; "
+        f"its weights and buffers equal the trainer's")
+
+    loader = trainer.train_loader
+    loader.set_epoch(1)
+    sample = next(iter(loader))
+    x = torch.from_numpy(sample["image"]).to(trainer.device).permute(0, 3, 1, 2).contiguous()
+    label = torch.from_numpy(sample["label"]).to(trainer.device)
+    split, flops = _step_split(trainer, x, label)
+    peak = PEAK_FLOP_PER_S[torch.float32]
+    bound_ms = (flops["forward"] + flops["backward"]) / peak * 1e3
+    log(f"[train_pranet] a step of {batch} at {PRANET_SIDE} on {card} (host clock, a device "
+        f"sync after each part, median of 3): forward and loss {split['forward']:.1f} ms "
+        f"({flops['forward'] / 1e12:.3f} TFLOP counted, "
+        f"{flops['forward'] / split['forward'] / 1e9:.1f} TFLOP/s), backward "
+        f"{split['backward']:.1f} ms ({flops['backward'] / 1e12:.3f} TFLOP, "
+        f"{flops['backward'] / split['backward'] / 1e9:.1f} TFLOP/s), optimizer "
+        f"{split['optimizer']:.1f} ms; operations bound {bound_ms:.1f} ms at "
+        f"{peak / 1e12:.0f} TFLOP/s float32")
+    # where a whole step's time goes: kernels against the host's clock
+    from rnd_semantic_segmentation_torch.train.trainer import resize_batch_to
+
+    at_352 = {"image": x.permute(0, 2, 3, 1).contiguous(), "label": label}
+    for side in PRANET_RATE_SIDES[:2]:
+        b = at_352 if side == PRANET_SIDE else resize_batch_to(at_352, side)
+        _kernel_table(f"train_pranet step at {side}",
+                      {"step": lambda: trainer.step_fn(b, 0.0)}, "step")
+    return launches
+
+
+def _device_batch(loader, device) -> dict:
+    """The first batch of ``loader``'s epoch 1 on ``device``, NHWC as the
+    loader gives it."""
+    loader.set_epoch(1)
+    sample = next(iter(loader))
+    return {k: torch.from_numpy(sample[k]).to(device) for k in ("image", "label")}
+
+
+def _pranet_head(tester, x: torch.Tensor, size) -> torch.Tensor:
+    """The pranet head recomputed from the model's map-2 logits: bilinear to
+    ``size``, sigmoid, one min-max over the batch, ``[1 - p, p]``."""
+    with torch.inference_mode():
+        maps, _ = tester.segmentor(x)
+        p = torch.sigmoid(torch.nn.functional.interpolate(
+            maps[3].float(), size=size, mode="bilinear", align_corners=False))[:, 0]
+        p = (p - p.min()) / (p.max() - p.min() + 1e-8)
+        return torch.stack([1 - p, p], dim=1)
+
+
+def phase_eval_pranet(tmp: str, card: str) -> int:
+    """train_pranet's PraNet-1.pth through ``cli.test``'s own function on
+    polyp_val and bli_val (batch 1 at 352), the head against its plain
+    recomputation, then the card against the CPU."""
+    pth = _pranet_checkpoint(tmp)
+    root = _data_root(tmp)
+    logger = _stderr_logger("chip_smoke.eval_pranet")
+    launches = 0
+    side = PRANET_SIDE
+    for dataset, render in (("polyp_val", "kvasir.json"), ("bli_val", "bli.json")):
+        out_dir = os.path.join(tmp, f"eval_pranet_{dataset}")
+        args = test_cli.build_parser().parse_args(
+            ["-c", os.path.join(HERE, "renders", render)]
+            + _pranet_opts("pranet_src_polyp.yaml", root, out_dir, "DATASETS.TEST", dataset,
+                           "resume", pth))
+        cfg = load_cfg(args)
+        _check_pranet_geometry(cfg, "pranet_src_polyp.yaml")
+        tester = test_cli.make_tester(cfg, load_json(args.config_path), logger=logger)
+        images = len(tester.test_loader.dataset)
+        torch.cuda.synchronize()
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        summary = tester.test()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches += _check_no_kernel("eval_pranet")
+        scalars = [v for v in summary.values() if isinstance(v, float)]
+        if not scalars or not all(np.isfinite(scalars)) or not 0 <= summary["micro_miou"] <= 1:
+            raise AssertionError(f"summary {summary}")
+        if tester.confusion.sum() != images * side * side:
+            raise AssertionError(f"confusion matrix {tester.confusion.tolist()}")
+        log(f"[eval_pranet] {dataset} ({images} images at {side}x{side}, batch "
+            f"{cfg.TEST.BATCH_SIZE}) on {card}: {wall * 1e3:.0f} ms "
+            f"({images / wall:.1f} images/s, loader and warm-up included); micro mIoU "
+            f"{summary['micro_miou']:.4f}, macro mIoU {summary['macro_miou']:.4f}")
+
+    # the head on two of the last dataset's images against its plain recomputation
+    loader = tester.test_loader
+    pair = loader.collate_fn([loader.dataset[i] for i in range(2)])
+    x = torch.from_numpy(pair["image"]).to(tester.device).permute(0, 3, 1, 2).contiguous()
+    probs = tester._probs_impl(x, (side, side))
+    ref = _pranet_head(tester, x, (side, side))
+    err = (probs - ref).abs().max().item()
+    log(f"[eval_pranet] the head on a batch of 2 against sigmoid, batch min-max and stack "
+        f"of map 2: max abs difference {err:.2e} (tolerance {PRANET_HEAD_TOLERANCE:g}); "
+        f"p spans {probs[:, 1].min().item():.3f} to {probs[:, 1].max().item():.3f}")
+    if probs.shape != (2, 2, side, side) or not err <= PRANET_HEAD_TOLERANCE:
+        raise AssertionError(f"head {tuple(probs.shape)}, error {err}")
+
+    one = x[:1]
+    forward_ms = host_ms(lambda: tester._probs_impl(one, (side, side)).sum().item())
+    device_ms = graph_ms(lambda: tester._probs_impl(one, (side, side)), reps=2, replays=5)
+    flops = _counted_flops(lambda: tester._probs_impl(one, (side, side)))
+    bound_ms = flops / PEAK_FLOP_PER_S[torch.float32] * 1e3
+    log(f"[eval_pranet] forward of one {side}x{side} image on {card}: {forward_ms:.2f} ms on "
+        f"the host's clock, {device_ms:.2f} ms of device time (CUDA graph replay); "
+        f"{flops / 1e9:.2f} GFLOP counted, bound {bound_ms:.3f} ms at 67 TFLOP/s float32, "
+        f"{flops / device_ms / 1e9:.1f} TFLOP/s achieved")
+
+    # the card against the CPU: a seeded pranet_res2net50 at 64x64
+    small = load_cfg(test_cli.build_parser().parse_args(
+        ["-cfg", os.path.join(HERE, "configs", "pranet_src_polyp.yaml"),
+         "MODEL.DEVICE", "cpu"]))
+    segmentor = Segmentor(build_segmentor(small), small.MODEL.NUM_CLASSES)
+    randomize_weights_(segmentor, seed=0)
+    xs = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
+    with torch.inference_mode():
+        refs, _ = segmentor.eval()(xs)
+        outs, _ = segmentor.to(tester.device)(xs.to(tester.device))
+    errs = [((o.cpu() - r).abs().max() / r.abs().max()).item() for o, r in zip(outs, refs)]
+    log(f"[eval_pranet] pranet_res2net50 at 64x64, card against CPU: the four maps within "
+        f"{max(errs):.2e} of their largest magnitude (tolerance {PRANET_CPU_TOLERANCE:g})")
+    if not max(errs) <= PRANET_CPU_TOLERANCE:
+        raise AssertionError(f"card and CPU maps differ: {errs}")
+    return launches
+
+
+def phase_serve_pranet(tmp: str, card: str) -> int:
+    """The daemon on train_pranet's checkpoint at 352x352: 16 PNG requests from
+    8 threads.  The pranet head min-maxes over its batch, zero rows of a
+    padded bucket included, so one dispatched batch of masks is checked
+    against ``Tester._probs_impl`` on that same bucket outside the server."""
+    from rnd_semantic_segmentation_torch.serve.server import InferenceServer
+
+    pth = _pranet_checkpoint(tmp)
+    args = build_parser().parse_args(
+        ["--max-batch", str(MAX_BATCH), "-c", os.path.join(HERE, "renders", "kvasir.json")]
+        + _pranet_opts("pranet_src_polyp.yaml", _data_root(tmp), tmp, "resume", pth))
+    cfg = load_cfg(args)
+    _check_pranet_geometry(cfg, "pranet_src_polyp.yaml")
+    dispatched = []
+    run = InferenceServer._run
+
+    def recording(self, x, n=None):
+        preds = run(self, x, n)
+        if n is not None:
+            dispatched.append((x.copy(), n, preds))
+        return preds
+
+    _zero_kernel_counts()
+    with mock.patch.object(InferenceServer, "_run", recording):
+        inf, bodies, masks, batches, _, wall = serve_traffic(
+            "serve_pranet", cfg, args, load_json(args.config_path), PRANET_SIDE, PRANET_SIDE,
+            card, (ccattn, "KERNEL_LAUNCHES"))
+    launches = _check_no_kernel("serve_pranet")
+    serve_breakdown("serve_pranet", inf, bodies, masks, PRANET_SIDE, PRANET_SIDE, batches,
+                    wall, card)
+    x, n, preds = max(dispatched, key=lambda d: d[1])
+    xt = torch.from_numpy(x).to(inf.tester.device).permute(0, 3, 1, 2).contiguous()
+    ref = inf.tester._probs_impl(xt, (PRANET_SIDE, PRANET_SIDE)).argmax(1).to(torch.uint8)
+    ref = ref[:n].cpu().numpy()
+    differ = int(sum((p != r).sum() for p, r in zip(preds, ref)))
+    log(f"[serve_pranet] {len(dispatched)} dispatched batches of {[d[1] for d in dispatched]} "
+        f"requests; the batch of {n} in a bucket of {len(x)} against Tester._probs_impl on "
+        f"the same bucket: {differ} of {n * PRANET_SIDE ** 2} pixels differ")
+    if differ:
+        raise AssertionError(f"{differ} pixels of the served masks differ from the Tester's")
+    return launches
+
+
+def phase_train_fada_pranet(tmp: str, card: str) -> int:
+    """configs/pranet_adv_polyp_bli.yaml: polyp_train -> bli_train from the
+    files, 8 + 8 images a step at 352 (SOLVER.BATCH_SIZE // 2 each, as the
+    JAX CLI), one epoch; then PraNetFada-1.pth through ``cli.test`` on
+    bli_val."""
+    root = _data_root(tmp)
+    side = f"({PRANET_SIDE}, {PRANET_SIDE})"
+    trainer = _run_fada("train_fada_pranet", tmp, card, "pranet_adv_polyp_bli.yaml",
+                        PRANET_FADA_GEOMETRY, FILE_STEPS["pranet_fada"],
+                        "SOLVER.CHECKPOINT_PERIOD", "1", "INPUT.SOURCE_INPUT_SIZE_TRAIN", side,
+                        "INPUT.TARGET_INPUT_SIZE_TRAIN", side, data_dir=root)
+    launches = _check_no_kernel("train_fada_pranet")
+    names = (trainer.cfg.DATASETS.SOURCE_TRAIN, trainer.cfg.DATASETS.TARGET_TRAIN)
+    if names != ("polyp_train", "bli_train") or trainer.rates != (1.0,):
+        raise AssertionError(f"datasets {names}, rates {trainer.rates}")
+    log(f"[train_fada_pranet] {names[0]} -> {names[1]}, one step a batch; data share "
+        f"{_data_share(trainer):.1%}")
+    src, tgt = (_device_batch(loader, trainer.device)
+                for loader in (trainer.src_loader, trainer.tgt_loader))
+    _kernel_table("train_fada_pranet step", {"step": lambda: trainer.step_fn(src, tgt, 0.0)},
+                  "step", top=8)
+    pth = os.path.join(tmp, "train_fada_pranet", "PraNetFada-1.pth")
+    args = test_cli.build_parser().parse_args(
+        ["-c", os.path.join(HERE, "renders", "bli.json")]
+        + _pranet_opts("pranet_adv_polyp_bli.yaml", root, os.path.join(tmp, "eval_fada_pranet"),
+                       "resume", pth))
+    cfg = load_cfg(args)
+    tester = test_cli.make_tester(cfg, load_json(args.config_path),
+                                  logger=_stderr_logger("chip_smoke.eval_fada_pranet"))
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    summary = tester.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches += _check_no_kernel("eval_fada_pranet")
+    images = len(tester.test_loader.dataset)
+    scalars = [v for v in summary.values() if isinstance(v, float)]
+    if (cfg.DATASETS.TEST != "bli_val" or not all(np.isfinite(scalars))
+            or tester.confusion.sum() != images * PRANET_SIDE ** 2):
+        raise AssertionError(f"{cfg.DATASETS.TEST}: summary {summary}")
+    log(f"[train_fada_pranet] {pth} through cli.test on bli_val ({images} images at "
+        f"{PRANET_SIDE}x{PRANET_SIDE}): {wall * 1e3:.0f} ms, micro mIoU "
+        f"{summary['micro_miou']:.4f}")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -2298,6 +2683,14 @@ def main(argv=None) -> int:
         file_launches += phase_train_distill_files(tmp, card)
         torch.cuda.empty_cache()
         bli_launches = phase_train_attn_files(tmp, card)
+        torch.cuda.empty_cache()
+        pranet_launches = phase_train_pranet(tmp, card)
+        torch.cuda.empty_cache()
+        pranet_launches += phase_eval_pranet(tmp, card)
+        torch.cuda.empty_cache()
+        pranet_launches += phase_serve_pranet(tmp, card)
+        torch.cuda.empty_cache()
+        pranet_launches += phase_train_fada_pranet(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
@@ -2306,7 +2699,7 @@ def main(argv=None) -> int:
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_fwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
-        **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
+        "launches_pranet": pranet_launches, **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
                                           "over H*W pixels with the criss-cross mask",
         "shape": list(MAIN_CC_SHAPE),
         "at_train_shape": {**fwd[TRAIN_CC_SHAPE], "shape": list(TRAIN_CC_SHAPE)},
@@ -2317,7 +2710,7 @@ def main(argv=None) -> int:
         "launches": train_bwd_launches + fada_gald_bwd, "launches_train": train_bwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_bwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
-        **bwd, "library_ms": None,
+        "launches_pranet": pranet_launches, **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
@@ -2332,7 +2725,7 @@ def main(argv=None) -> int:
         "launches_eval_attn_trained": eval_attn_trained_launches,
         "launches_fada_attn": fada_attn_launches, "launches_fada_deeplab": fada_launches,
         "launches_files": file_launches, "launches_eval_bli": bli_launches,
-        **mb, "library_ms": None,
+        "launches_pranet": pranet_launches, **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")
     log(card)

@@ -1,11 +1,12 @@
 """Weights between the JAX package's variables and reference ``state_dict``s.
 
 ``deeplab_state_dicts_from_flax``, ``gald_state_dicts_from_flax``,
-``attn_state_dicts_from_flax`` and ``disc_state_dict_from_flax`` are the
-inverses of the JAX package's ``convert_state_dict`` with its ResNet
-backbone or VGG16 and ASPP classifier, GCPA, attn encoder and decoder, and
-discriminator rule tables: flax scope paths become the reference's torch
-keys, and by role
+``attn_state_dicts_from_flax``, ``pranet_state_dicts_from_flax`` and
+``disc_state_dict_from_flax`` are the inverses of the JAX package's
+``convert_state_dict`` with its ResNet backbone or VGG16 and ASPP
+classifier, GCPA, attn encoder and decoder, PraNet (``PRANET_RULES`` on
+Res2Net50-v1b, ``CRANET_RULES`` on a ResNet) and discriminator rule tables:
+flax scope paths become the reference's torch keys, and by role
 
   * conv kernels go from HWIO to OIHW (depthwise ones too);
   * transposed-conv kernels, which the JAX package stores flipped in
@@ -22,8 +23,8 @@ They take the variables as nested dicts of arrays (numpy, or anything
 ``np.asarray`` reads) and import no JAX.
 
 ``gald_flax_from_state_dicts``, ``deeplab_flax_from_state_dicts``,
-``attn_flax_from_state_dicts`` and ``disc_flax_from_state_dict`` go the other
-way, for the training tests:
+``attn_flax_from_state_dicts``, ``pranet_flax_from_state_dicts`` and
+``disc_flax_from_state_dict`` go the other way, for the training tests:
 the port's tensors by ``state_dict`` key (weights, or gradients by parameter
 name) are laid out as a flax tree, so that loss, gradients and updated
 parameters can be compared leaf by leaf.  ``attnwrap_state_dicts_from_flax``
@@ -106,6 +107,31 @@ _DISC_RULES = [
     (r"^d1$", "D.2"),
     (r"/", "."),
 ]
+# PraNet: the RFB branches are Sequentials of BasicConv2d; Res2Net50-v1b's
+# deep stem is the Sequential ``conv1`` (convs at 0, 3, 6, BNs at 1, 4) and
+# its shortcut ``downsample`` holds the pool at 0, the conv at 1 and the BN
+# at 2; the CRANet ResNet's is torchvision's (conv 0, BN 1)
+_PRANET_HEAD_RULES = [
+    (r"branch(\d)_(\d)", r"branch\1.\2"),
+    (r"/", "."),
+]
+_PRANET_RULES = [
+    (r"^resnet/stem_conv0$", "resnet/conv1/0"),
+    (r"^resnet/stem_bn0$", "resnet/conv1/1"),
+    (r"^resnet/stem_conv1$", "resnet/conv1/3"),
+    (r"^resnet/stem_bn1$", "resnet/conv1/4"),
+    (r"^resnet/stem_conv2$", "resnet/conv1/6"),
+    (r"layer(\d+)_(\d+)", r"layer\1.\2"),
+    (r"convs_(\d+)$", r"convs.\1"),
+    (r"bns_(\d+)$", r"bns.\1"),
+    (r"downsample_conv$", "downsample.1"),
+    (r"downsample_bn$", "downsample.2"),
+] + _PRANET_HEAD_RULES
+_CRANET_RULES = [
+    (r"layer(\d+)_(\d+)", r"layer\1.\2"),
+    (r"downsample_conv$", "downsample.0"),
+    (r"downsample_bn$", "downsample.1"),
+] + _PRANET_HEAD_RULES
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                  "gamma": "gamma"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
@@ -189,6 +215,19 @@ def attnwrap_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Di
     parts = attn_state_dicts_from_flax(_split_scopes(variables["model"]))
     return {"model": {f"{part}.{key}": value for part, sd in parts.items()
                       for key, value in sd.items()}}
+
+
+def _pranet_rules(variables: Mapping[str, Any]):
+    """Res2Net50-v1b has a deep stem (``stem_conv0``); the CRANet ResNet has not."""
+    return (_PRANET_RULES if "stem_conv0" in variables["params"]["resnet"]
+            else _CRANET_RULES)
+
+
+def pranet_state_dicts_from_flax(variables: Mapping[str, Any]) -> Dict[str, Dict]:
+    """JAX pranet variables ``{"model": ...}`` (Res2Net50-v1b or a ResNet
+    backbone) -> ``{"model": state dict}``."""
+    model = variables["model"]
+    return {"model": _state_dict_from_flax(model, _pranet_rules(model))}
 
 
 def _split_scopes(variables: Mapping[str, Any]) -> Dict[str, Dict]:
@@ -298,6 +337,14 @@ def attnwrap_flax_from_state_dicts(tensors: Mapping[str, Mapping],
         for collection, value in tree.items():
             model.setdefault(collection, {})[part] = value
     return {"model": model}
+
+
+def pranet_flax_from_state_dicts(tensors: Mapping[str, Mapping],
+                                 template: Mapping[str, Any]) -> Dict[str, Dict]:
+    """The inverse of ``pranet_state_dicts_from_flax``, as
+    ``gald_flax_from_state_dicts`` is for GALD."""
+    model = template["model"]
+    return {"model": _flax_from_state_dict(tensors["model"], model, _pranet_rules(model))}
 
 
 def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -7,9 +7,14 @@
     python -m rnd_semantic_segmentation_torch.cli.serve \\
         -cfg configs/attn_src_kvasir.yaml -c renders/kvasir.json \\
         MODEL.FUSED_MBCONV True resume <weights.pth>
+    python -m rnd_semantic_segmentation_torch.cli.serve \\
+        -cfg configs/pranet_src_polyp.yaml -c renders/kvasir.json --max-batch 1 \\
+        resume <PraNet-N.pth>
 
-Serves every family the port builds (deeplab, gald, attn, attnwrap); ``-c``
-names the render config whose palette colours the masks.  Runs on the CUDA
+Serves every family the port builds (deeplab, gald, attn, attnwrap,
+pranet); ``-c`` names the render config whose palette colours the masks.
+The pranet head normalises over its whole batch, so ``--max-batch 1`` gives
+each request a mask of its own image alone.  Runs on the CUDA
 card unless ``MODEL.DEVICE cpu`` is given.
 """
 

@@ -5,6 +5,9 @@
         DATASETS.SOURCE_TRAIN synthetic_train DATASETS.TARGET_TRAIN synthetic_shift_train
     python -m rnd_semantic_segmentation_torch.cli.train_adv -cfg configs/gald_adv.yaml ...
     python -m rnd_semantic_segmentation_torch.cli.train_adv -cfg configs/attn_adv_kvasir.yaml ...
+    python -m rnd_semantic_segmentation_torch.cli.train_adv -cfg configs/pranet_adv_polyp_bli.yaml \\
+        DATASETS.DATASET_DIR <root> INPUT.SOURCE_INPUT_SIZE_TRAIN "(352, 352)" \\
+        INPUT.TARGET_INPUT_SIZE_TRAIN "(352, 352)"
 
 The source and target loaders each take ``SOLVER.BATCH_SIZE // 2`` images a
 step, and the target dataset is repeated 9 times, as in the reference, so

@@ -6,9 +6,14 @@
         -cfg configs/gald_src.yaml DATASETS.SOURCE_TRAIN synthetic_train
     python -m rnd_semantic_segmentation_torch.cli.train_src \\
         -cfg configs/attn_src_kvasir.yaml DATASETS.SOURCE_TRAIN synthetic_train
+    python -m rnd_semantic_segmentation_torch.cli.train_src \\
+        -cfg configs/pranet_src_polyp.yaml DATASETS.DATASET_DIR <root> \\
+        INPUT.SOURCE_INPUT_SIZE_TRAIN "(352, 352)"
 
-The model family (deeplab, gald, attn or attnwrap) comes from MODEL.NAME
-through the registry.  Runs on the CUDA card unless ``MODEL.DEVICE cpu`` is
+The model family (deeplab, gald, attn, attnwrap or pranet) comes from
+MODEL.NAME through the registry.  The pranet configs leave the size the
+Kvasir-fold and BLI readers resize to at its default, which the model
+cannot take: set it to TRAINSIZE squared.  Runs on the CUDA card unless ``MODEL.DEVICE cpu`` is
 given.
 """
 

@@ -12,7 +12,8 @@ INPUT.PIXEL_MEAN/PIXEL_STD/TO_BGR255 (the aspp transforms), AUG.NAME,
 TEST.QUANT, TEST.FLIP_TTA/MULTI_SCALE/SCALES (deeplab test-time
 augmentation, one image a batch), OUTPUT_DIR and resume; for evaluation also
 DATASETS.DATASET_DIR/TEST/CROSS_VAL/SYNTHETIC_LENGTH, TEST.BATCH_SIZE,
-INPUT.IGNORE_LABEL, INPUT.TRAINSIZE (the pra transforms), AUG.COLLATE,
+INPUT.IGNORE_LABEL, INPUT.TRAINSIZE (the pra transforms, and pranet's
+multi-scale rates in training), AUG.COLLATE,
 DATA_PIPE.NUM_WORKERS/WORKER_PROCESSES/PREFETCH/SEED, and PSEUDO_DIR (where
 ``--saveres`` writes its PNGs); and for source training (``cli.train_src``,
 and ``cli.train_distill``, which reads DISTILL.ONLINE) also
@@ -35,8 +36,9 @@ SOLVER.ASYNC_CHECKPOINT, DATA_PIPE.DEVICE_AUG, DATA_PIPE.NATIVE_DECODE,
 DISTILL.ONLINE, DIST.*, DEBUG.CHECKIFY).
 The other keys belong to parts of the JAX package not yet ported and are kept
 so that their configs load.  The port computes in float32 whatever MODEL.DTYPE
-says, in training as in serving; MODEL.FREEZE_BN does not reach the gald and
-attn families, here as in the JAX package, and TEST.FLIP_TTA/MULTI_SCALE act on
+says, in training as in serving; MODEL.FREEZE_BN does not reach the gald,
+attn and pranet families, here as in the JAX package (both pranet configs
+set it, and their BatchNorms train on batch statistics), and TEST.FLIP_TTA/MULTI_SCALE act on
 the deeplab family only, as there.
 """
 

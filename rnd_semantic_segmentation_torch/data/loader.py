@@ -35,8 +35,12 @@ import torch
 def preprocess_eval_image(image, transform) -> np.ndarray:
     """An RGB image (PIL or HWC array) -> model-input float32 HWC via a test
     transform, with the collate rescale rule: uint8 outputs (identity
-    pipelines) are divided by 255, float outputs pass through."""
-    img, _ = transform(image, None)
+    pipelines) are divided by 255, float outputs pass through.  The label is
+    a float32 zero image of the image's size, as in the JAX package: the
+    ``pra`` transform resizes it with the image."""
+    h, w = ((image.height, image.width) if hasattr(image, "height")
+            else np.asarray(image).shape[:2])
+    img, _ = transform(image, np.zeros((h, w), np.float32))
     img = np.asarray(img)
     if img.dtype == np.uint8:
         img = img.astype(np.float32) / 255.0

@@ -10,7 +10,16 @@ One loop for every ported family; the families differ in the probability head:
   * gald — decoder ``out2`` -> bilinear (align_corners=False) to the label
     size -> softmax over classes;
   * attn and attnwrap — ``sigmoid(out_0)`` in float32, one channel per
-    class; the mask is its argmax.
+    class; the mask is its argmax;
+  * pranet — lateral map 2 (the last output) -> bilinear
+    (align_corners=False) to the label size -> sigmoid -> min-max
+    normalised over the whole batch -> ``[1 - p, p]``.  The minimum and
+    maximum are the batch's, so one image's probabilities depend on the
+    others in its batch, as in the JAX package.  ``test()`` pads no batch,
+    so its statistics are the JAX ones over the valid rows; the server's
+    zero rows of a padded bucket take part, as they do in the JAX server
+    (``TEST.BATCH_SIZE 1``, or ``--max-batch 1``, makes each mask depend on
+    its own image alone).
 
 ``Tester(cfg, logger)`` is what the serving daemon builds: the model on its
 device, the checkpoint loader for reference-layout ``.pth`` files and the
@@ -119,6 +128,12 @@ class Tester:
         if fam in ("attn", "attnwrap"):
             outputs, _ = self.segmentor(x)
             return torch.sigmoid(outputs[0].float())
+        if fam == "pranet":
+            outputs, _ = self.segmentor(x)
+            out = resize_bilinear(outputs[-1].float(), label_size, align_corners=False)
+            p = torch.sigmoid(out)[:, 0]
+            p = (p - p.min()) / (p.max() - p.min() + 1e-8)  # over the whole batch
+            return torch.stack([1 - p, p], dim=1)
         raise NotImplementedError(fam)
 
     # -- loop --------------------------------------------------------------------

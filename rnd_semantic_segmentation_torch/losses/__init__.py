@@ -3,15 +3,18 @@
 ``cross_entropy`` is the loss of the gald and deeplab families;
 ``bce_with_logits`` and ``tversky_loss`` make up the attn family's (Tversky
 with alpha 0.7 and eps 1, and BCE, at each of its five scales);
-``soft_label_cross_entropy`` is FADA's discriminator and adversarial loss.  The Dice and
-structure losses come with their families.  Every reduction is in float32,
-whatever the type of the logits.
+``soft_label_cross_entropy`` is FADA's discriminator and adversarial loss;
+``structure_loss`` is the pranet family's, on each of its four maps.  The
+Dice losses come with their family.  Every reduction is in float32, whatever
+the type of the logits.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from ..ops import avg_pool
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -60,3 +63,29 @@ def soft_label_cross_entropy(pred: torch.Tensor, soft_label: torch.Tensor) -> to
     over B, H and W."""
     per_pixel = -(soft_label.float() * F.log_softmax(pred.float(), dim=1)).sum(1)
     return per_pixel.mean()
+
+
+def structure_loss(pred: torch.Tensor, mask: torch.Tensor,
+                   paper_weighted_bce: bool = False) -> torch.Tensor:
+    """PraNet's structure loss: a BCE term plus a weighted IoU, where the
+    weight ``1 + 5 * |avg_pool(mask, 31, 1, 15) - mask|`` (padding counted)
+    stresses the pixels near a boundary.
+
+    pred ``[B,1,H,W]`` logits, mask ``[B,1,H,W]`` float.  The BCE term is
+    the plain mean of the elementwise BCE by default: the reference calls
+    ``binary_cross_entropy_with_logits(..., reduce='none')``, and a truthy
+    ``reduce`` means a mean, so its later weighting divides a scalar by
+    nothing.  ``paper_weighted_bce=True`` weights it per image as the paper
+    means to.  The IoU is ``1 - (inter + 1) / (union - inter + 1)`` per image,
+    and the loss is the mean over images of the two terms' sum.
+    """
+    pred, mask = pred.float(), mask.float()
+    weit = 1.0 + 5.0 * (avg_pool(mask, 31, 1, padding=15) - mask).abs()
+    bce = F.binary_cross_entropy_with_logits(pred, mask, reduction="none")
+    dims = (1, 2, 3)
+    wbce = ((weit * bce).sum(dims) / weit.sum(dims)) if paper_weighted_bce else bce.mean()
+    p = torch.sigmoid(pred)
+    inter = (p * mask * weit).sum(dims)
+    union = ((p + mask) * weit).sum(dims)
+    wiou = 1.0 - (inter + 1.0) / (union - inter + 1.0)
+    return (wbce + wiou).mean()

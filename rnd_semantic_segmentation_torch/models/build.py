@@ -6,14 +6,18 @@ ResNet + ASPP-V2, FrozenBN when ``MODEL.FREEZE_BN``) or VGG16
 (``deeplab_vgg16``: VGG16-FCN + ASPP-V2, no norm), the ``gald`` family
 (HarDNet68 + GCPA-CC), the ``attn`` family (EfficientNet-B0..B4 encoder +
 attention-gated UNet decoder, parts ``encoder`` and ``decoder``) and its
-single-module variant ``attnwrap`` (part ``model``); every other family
-raises NotImplementedError until its slice is ported.
+single-module variant ``attnwrap`` (part ``model``) and the ``pranet``
+family (``pranet_res2net50``, and ``pranet_resnet50``, the CRANet variant:
+one part ``model`` whose forward also returns the layer4 tap, Adam at 1/8
+of the base LR); every other family raises NotImplementedError until its
+slice is ported.
 ``build_adversarial_discriminator`` gives FADA's ``PixelDiscriminator``
 for a family's discriminator tap.
 ``MODEL.FUSED_MBCONV`` reaches the attn encoder as a constructor argument: in
 eval mode its eligible MBConv blocks then run the fused kernel of
-ops/mbconv.py.  ``MODEL.FREEZE_BN`` reaches the ResNet backbones only, as in
-the JAX package: the attn norms train on batch statistics.
+ops/mbconv.py.  ``MODEL.FREEZE_BN`` reaches the deeplab ResNet backbones
+only, as in the JAX package: the attn and pranet norms train on batch
+statistics, although both pranet configs set it.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ from .discriminator import PixelDiscriminator
 from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
 from .layers import FrozenBatchNorm2d
+from .pranet import PraNet
+from .res2net import Res2Net
 from .resnet import _ARCHS, ResNet, output_channels
 
 
@@ -108,17 +114,25 @@ def build_segmentor(cfg) -> SegmentorSpec:
             lr_mults={"encoder": 1.0, "decoder": 10.0},
             optimizer="adam", ckpt_prefix="Attn", disc_tap="reduction_5",
         )
+    if family == "pranet":
+        bb = backbone or "res2net50"
+        return SegmentorSpec(
+            family=family, backbone=bb,
+            modules={"model": PraNet(backbone=bb, with_tap=True)},
+            lr_mults={"model": 0.125},  # Adam at BASE_LR / 8, as the reference trainer
+            optimizer="adam", ckpt_prefix="PraNet", disc_tap="layer4",
+        )
     raise NotImplementedError(
         f"model family {family!r} is not ported yet (the port builds 'deeplab', "
-        f"'gald', 'attn' and 'attnwrap')")
+        f"'gald', 'attn', 'attnwrap' and 'pranet')")
 
 
 def tap_channels(spec: SegmentorSpec) -> int:
     """The channels of the feature that feeds the FADA discriminator, read
     from the modules that consume or make it: the ASPP head's input (deeplab),
     the GCPA decoder's first conv on the last HarDNet tap (gald), the
-    EfficientNet head conv (attn).  attnwrap has no tap, as in the JAX
-    package, so FADA cannot train it."""
+    EfficientNet head conv (attn), the RFB block on layer4 (pranet).
+    attnwrap has no tap, as in the JAX package, so FADA cannot train it."""
     fam = spec.family
     if fam == "deeplab":
         return spec.modules["classifier"].conv2d_list[0].in_channels
@@ -126,9 +140,11 @@ def tap_channels(spec: SegmentorSpec) -> int:
         return spec.modules["decoder"].conva[0].in_channels
     if fam == "attn":
         return spec.modules["encoder"].encoder._conv_head.out_channels
+    if fam == "pranet":
+        return spec.modules["model"].rfb4_1.conv_res.conv.in_channels
     raise NotImplementedError(
         f"{fam}: no discriminator tap (the single-module variant returns none); "
-        f"FADA trains deeplab, gald and attn")
+        f"FADA trains deeplab, gald, attn and pranet")
 
 
 def build_adversarial_discriminator(cfg, spec: SegmentorSpec) -> PixelDiscriminator:
@@ -148,7 +164,7 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     logits of order 1 to 5; biases and BN affines are small and nonzero,
     running statistics random, and every criss-cross ``gamma`` is set to
     ``gamma``: at its init value 0 the attention would contribute nothing.
-    The norms of a ResNet take weights in [0.25, 0.75]: with running
+    The norms of a ResNet or Res2Net take weights in [0.25, 0.75]: with running
     statistics (FrozenBN always, BatchNorm in eval mode) nothing normalises
     the sum of a residual block, and at [0.5, 1.5] each block about doubles
     the second moment of its input, so that ResNet101's 33 blocks take the
@@ -162,7 +178,7 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     def uniform(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
-    damped = {id(n) for m in module.modules() if isinstance(m, ResNet)
+    damped = {id(n) for m in module.modules() if isinstance(m, (ResNet, Res2Net))
               for n in m.modules()}
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

@@ -1,4 +1,4 @@
-from .pool import max_pool
-from .resize import resize_bilinear
+from .pool import avg_pool, max_pool
+from .resize import resize_bilinear, scaled_size
 
-__all__ = ["max_pool", "resize_bilinear"]
+__all__ = ["avg_pool", "max_pool", "resize_bilinear", "scaled_size"]

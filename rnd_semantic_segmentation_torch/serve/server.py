@@ -2,7 +2,9 @@
 
 Concurrent requests are gathered into one device batch, run through the
 ``Tester`` probability head the offline eval uses (gald: softmax over the
-classes; attn: one sigmoid per class), and fanned back out as argmax masks.
+classes; attn: one sigmoid per class; pranet: a sigmoid min-maxed over the
+whole padded bucket, as in the JAX server, so a pranet mask depends on the
+rest of its batch), and fanned back out as argmax masks.
 
 Endpoints:
   * ``POST /predict``  image bytes (JPEG/PNG) -> palette-PNG mask

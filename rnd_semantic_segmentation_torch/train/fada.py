@@ -5,7 +5,8 @@ One call runs the reference's three phases:
 
   1. the source forward in train mode and its segmentation loss: CE on
      ``outputs / 1.8`` for deeplab and gald, the five-scale Tversky + BCE on
-     the raw outputs for attn;
+     the raw outputs for attn, the structure loss on the four raw maps for
+     pranet;
   2. the target forward in train mode (BatchNorm statistics chain on from the
      source forward) and the generator's adversarial loss
      ``ADV_WEIGHT * softCE(D(tgt_tap, tgt_size), [tgt_soft | 0])``; one
@@ -16,10 +17,13 @@ One call runs the reference's three phases:
      ``0.5 * softCE(D(src_tap), [src_soft | 0]) + 0.5 * softCE(D(tgt_tap), [0 | tgt_soft])``.
 
 The soft labels are ``min(softmax(final / 1.8), 0.9)``, detached, where
-``final`` is the first output (deeplab, attn) or out2, the last (gald).
+``final`` is the first output (deeplab, attn; pranet's lateral map 5, not
+the map 2 that eval reads, as in the JAX step) or out2, the last (gald).  A
+1-channel ``final`` (pranet) gives ``[1 - sigmoid(final / 1.8),
+sigmoid(final / 1.8)]``, clipped the same way.
 
-LRs: poly per iteration on ``BASE_LR`` and ``BASE_LR_D`` for deeplab and
-gald, warm-up cosine per epoch on both for attn, each segmentor part at its
+LRs: poly per iteration on ``BASE_LR`` and ``BASE_LR_D`` for deeplab, gald
+and pranet, warm-up cosine per epoch on both for attn, each segmentor part at its
 ``lr_mults``.  Like the JAX step it reads neither LR_METHOD, LR_BATCH_REF,
 WARMUP_ITERS, ACCUM_STEPS nor GRAD_CLIP.  D trains with Adam (betas 0.9,
 0.99, eps 1e-8, no weight decay), the parts with ``make_optimizers``'.
@@ -48,7 +52,12 @@ def make_disc_optimizer(disc: nn.Module) -> torch.optim.Optimizer:
 
 
 def _soft_label(final: torch.Tensor) -> torch.Tensor:
-    soft = torch.softmax(final.detach().float() / TEMPERATURE, dim=1)
+    z = final.detach().float() / TEMPERATURE
+    if z.shape[1] == 1:
+        p = torch.sigmoid(z)
+        soft = torch.cat([1.0 - p, p], dim=1)
+    else:
+        soft = torch.softmax(z, dim=1)
     return soft.clamp(max=SOFT_CLIP)
 
 
@@ -68,13 +77,11 @@ def make_fada_train_step(segmentor: Segmentor, disc: nn.Module, cfg,
     """
     check_step_knobs(cfg)
     spec = segmentor.spec
-    if spec.family not in ("deeplab", "gald", "attn"):
-        raise NotImplementedError(f"FADA for the {spec.family} family: the port "
-                                  f"trains deeplab, gald and attn adversarially")
     loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
     adv_weight = float(cfg.SOLVER.ADV_WEIGHT)
     max_iter = cfg.SOLVER.EPOCHS * steps_per_epoch
     epoch_sched = spec.family == "attn"
+    raw_outputs = spec.family in ("attn", "pranet")  # 1.8 shapes the soft labels only
 
     def lr_at(base, it, epoch0):
         if epoch_sched:
@@ -97,7 +104,7 @@ def make_fada_train_step(segmentor: Segmentor, disc: nn.Module, cfg,
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
         src_outputs, src_tap, src_size = forward(src_batch)
-        scaled = src_outputs if epoch_sched else tuple(o / TEMPERATURE for o in src_outputs)
+        scaled = src_outputs if raw_outputs else tuple(o / TEMPERATURE for o in src_outputs)
         loss_seg = loss_fn(scaled, src_batch["label"])
         src_soft = _soft_label(final(src_outputs))
         tgt_outputs, tgt_tap, tgt_size = forward(tgt_batch)

@@ -5,6 +5,9 @@ features.  gald: ``decoder(x, encoder(x))``, whose discriminator tap is the
 last encoder tap.  attn: ``decoder(encoder(x))`` with five outputs
 at scales 1 to 1/16, tapped at ``reduction_5``.  attnwrap: the same forward
 as one ``model`` part, with no tap (``None``), as in the JAX package.
+pranet: the ``model`` part's four lateral maps at the input size (x8 of the
+aggregation, then the reverse-attention maps of layer4, layer3 and layer2),
+tapped at layer4.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ class Segmentor(nn.Module):
         its running statistics; ``train=False`` applies the running ones.  A
         ``FrozenBatchNorm2d`` applies its buffers either way.
         ``label_size`` is for the deeplab head, which resizes to it (the input
-        size when None); the gald and attn heads are at the input size.
+        size when None); the gald, attn and pranet heads are at the input size.
         ``generator`` (on x's device) feeds the attn encoder's drop-connect,
         which in train mode needs one; the other families take no draws.
         """
@@ -52,4 +55,7 @@ class Segmentor(nn.Module):
             return self.parts["decoder"](endpoints), endpoints["reduction_5"]
         if fam == "attnwrap":
             return self.parts["model"](x, generator), None
+        if fam == "pranet":
+            outs = self.parts["model"](x)
+            return tuple(outs[:4]), outs[4]
         raise NotImplementedError(fam)

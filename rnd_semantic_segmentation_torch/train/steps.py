@@ -11,7 +11,10 @@ Loss wiring per family:
     0.5*Tversky + 0.5*BCE against the one-hot labels resized bilinearly
     (align_corners=False) to each output's size; an ignored pixel (255) has
     a one-hot row of zeros, as ``jax.nn.one_hot`` gives it.
-  * pranet: with its slice of the port.
+  * pranet: the sum over the four lateral maps of ``structure_loss``
+    against the label cast to a float mask ``[B,1,H,W]``; the step clamps
+    each gradient element to [-0.5, 0.5] (SOLVER.GRAD_CLIP, when set,
+    instead).
 
 LR schedules follow the reference trainers: poly per iteration for deeplab and
 gald, per-epoch warm-up and cosine for pranet and attn whatever
@@ -62,7 +65,13 @@ def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callabl
             return total
         return loss_fn
     if fam == "pranet":
-        raise NotImplementedError("the pranet loss comes with the pranet slice of the port")
+        def loss_fn(outputs, label):
+            mask = label.unsqueeze(1).float()
+            total = losses.structure_loss(outputs[0], mask)
+            for out in outputs[1:]:
+                total = total + losses.structure_loss(out, mask)
+            return total
+        return loss_fn
     raise NotImplementedError(fam)
 
 

@@ -12,10 +12,16 @@ Loop semantics kept from the reference trainers:
     ``<family>_fada_chart_params.json``, six series);
   * resume from ``cfg.resume`` (a file, or ``latest`` in OUTPUT_DIR);
   * the step's drop-connect generator is seeded from ``SEED + 1``, as the
-    JAX trainer's ``base_rng`` is, and reseeded per step from the step count.
+    JAX trainer's ``base_rng`` is, and reseeded per step from the step count;
+  * pranet trains each batch at three rates (``MULTISCALE_RATES``): three
+    optimizer steps, at sides ``round(TRAINSIZE * rate / 32) * 32`` (256,
+    352 and 448 at 352), the image and the float label resized bilinearly
+    with ``align_corners=True`` and the label rounded half to even;
+    ``iteration`` and the series count batches (the last rate's loss and
+    LR), ``state.step`` counts optimizer steps.  The FADA trainer takes one
+    step a batch at any family, as the JAX one does.
 
-One device, no mesh.  PraNet's multi-scale steps and the knobs that raise
-below come with their slices.
+One device, no mesh.  The knobs that raise below come with their slices.
 """
 
 from __future__ import annotations
@@ -35,11 +41,34 @@ from ..ckpt.checkpoint_io import (
 )
 from ..data.loader import DataLoader, device_prefetch
 from ..models.build import build_adversarial_discriminator, build_segmentor
+from ..ops import resize_bilinear
 from ..utils import MetricLogger, dump_json, resolve_device, setup_logger
 from .fada import DISC_PART, make_disc_optimizer, make_fada_train_step
 from .segmentor import Segmentor
 from .state import TrainState, make_optimizers
 from .steps import make_src_train_step
+
+
+MULTISCALE_RATES = (0.75, 1.0, 1.25)  # pranet's source training
+
+
+def rate_side(trainsize: int, rate: float) -> int:
+    """The side of a multi-scale step: ``TRAINSIZE * rate`` rounded (half to
+    even, Python's ``round``) to a multiple of 32."""
+    return int(round(trainsize * rate / 32) * 32)
+
+
+def resize_batch_to(batch, size: int):
+    """``{"image": [B,H,W,3], "label": [B,H,W]}`` at ``size`` x ``size``: the
+    image and the label as floats resized bilinearly with
+    ``align_corners=True``, then the label rounded half to even (as
+    ``np.rint``) back to its type."""
+    image = batch["image"].float().permute(0, 3, 1, 2)
+    image = resize_bilinear(image, (size, size), align_corners=True)
+    label = resize_bilinear(batch["label"].float().unsqueeze(1), (size, size),
+                            align_corners=True)
+    return {"image": image.permute(0, 2, 3, 1).contiguous(),
+            "label": torch.round(label[:, 0]).to(batch["label"].dtype)}
 
 
 def _refuse_unported(cfg) -> None:
@@ -75,6 +104,8 @@ class Trainer:
         self.state = TrainState(optimizers=make_optimizers(self.spec, cfg))
         self.ckpt_prefix, self.ckpt_modules = self.spec.ckpt_prefix, self.spec.modules
         self.chart_name = self.spec.family
+        if self.spec.family == "pranet":
+            self.rates = MULTISCALE_RATES
         self.start_epoch = self._resume()
         self.steps_per_epoch = len(train_loader)
         self.step_fn = make_src_train_step(self.segmentor, cfg, self.steps_per_epoch,
@@ -92,6 +123,7 @@ class Trainer:
         self.spec = build_segmentor(cfg)
         self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES).to(self.device)
         self.series = {key: [] for key in self.CHART.values()}
+        self.rates = (1.0,)  # optimizer steps a batch, at these rates of its side
 
     def _resume(self) -> int:
         """Restores ``ckpt_modules`` and ``state`` from ``cfg.resume`` (a file,
@@ -157,7 +189,10 @@ class Trainer:
                 except StopIteration:
                     break
                 data_time = time.time() - tic
-                metrics = self.step_fn(*args, epoch0)  # ends in a device sync
+                for rate in self.rates:
+                    step_args = args if rate == 1.0 else (resize_batch_to(
+                        args[0], rate_side(cfg.INPUT.TRAINSIZE, rate)),)
+                    metrics = self.step_fn(*step_args, epoch0)  # ends in a device sync
                 iteration += 1
                 meters.update(time=time.time() - tic, data=data_time,
                               **{k: v for k, v in metrics.items() if k.startswith("loss")})

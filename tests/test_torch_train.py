@@ -512,6 +512,6 @@ def test_unported_step_knobs_and_families_raise():
                                 TrainState(optimizers=make_optimizers(seg.spec, cfg)))
 
     class Spec:
-        family = "pranet"
-    with pytest.raises(NotImplementedError, match="pranet"):
+        family = "hrnet"  # a family neither package builds
+    with pytest.raises(NotImplementedError, match="hrnet"):
         make_family_loss(Spec, NC)

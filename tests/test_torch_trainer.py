@@ -160,7 +160,7 @@ def test_prune_checkpoints(tmp_path):
     ("SOLVER.REMAT", "full"),
     ("MODEL.REMAT_BLOCKS", "True"),
     ("DEBUG.CHECKIFY", "True"),
-    ("MODEL.NAME", "pranet_res2net50"),
+    ("MODEL.NAME", "gald_hardnet85"),  # HarDNet85 waits (Queue 1 item 12)
 ], ids=lambda o: o[0])
 def test_every_knob_that_waits_raises(tmp_path, opts):
     with pytest.raises(NotImplementedError):
