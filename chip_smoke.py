@@ -154,13 +154,54 @@ no result line on any failure.  Phases, each of which raises:
               finite, every parameter of the model and of D moved, no hand
               kernel; the kernels of a step under ``torch.profiler``; then
               PraNetFada-1.pth through the test CLI's function on bli_val.
+ 25. train_distill_online  online self-distillation (``cli.train_distill``
+              with DISTILL.ONLINE): configs/deeplabv2_r101_tgt_self_distill.yaml,
+              its teacher train_fada_files' AsppFada-1.pth with the class
+              means centred as saveres_cityscapes wrote it, at
+              DISTILL.CONFIDENCE_THRESHOLD 0.9, on the cityscapes files (the
+              reader's pseudo-label PNGs read and ignored), batch 5 at
+              1024x512, 2 steps; the first batch's labels the argmax of a
+              ``Tester`` forward of the teacher, 255 exactly where its largest
+              probability is below 0.9; the loss finite, every student
+              parameter moved, every teacher tensor bit-equal, no hand kernel;
+ 26. train_distill_online_gald  configs/gald_tgt_self_distill.yaml online at full
+              width, its teacher the train phase's Gald-1.pth (seeded when that
+              phase did not run), batch 5 of synthetic images at 1024x512, 3
+              steps: kernel #1 4 launches a step (the teacher's 2, the
+              student's 2), #2 2; the student's attention moved;
+ 27. train_distill_online_polyp  attn B2 online from train_attn_files'
+              checkpoint with MODEL.FUSED_MBCONV on, 3 steps of 20 at 512x512
+              of polyp_train files: kernel #3 17 launches a step, all the
+              teacher's; pranet_res2net50 online from train_pranet's
+              PraNet-1.pth, 2 batches of 16 at the three rates: binary
+              pseudo-labels, every step finite;
+ 28. device_aug  DATA_PIPE.DEVICE_AUG: (a) each apply function of
+              data/device_pipe.py on the card against the CPU with the same
+              draws; (b) configs/attn_src_kvasir.yaml with it and
+              SOLVER.BN_RECAL_BATCHES 8, N worker processes, two epochs of 6
+              steps of 20 on polyp_train files, reported beside
+              train_attn_files' numbers; every running statistic changed by the
+              recalibration, the re-saved checkpoint different from the state
+              before only there, eval mode closer to train mode on a train
+              batch, then that checkpoint through ``cli.test`` on bli_val with
+              kernel #3; (c) configs/pranet_src_polyp_tpu.yaml with only
+              NATIVE_DECODE and ASYNC_CHECKPOINT turned off, one epoch of 7
+              batches of 16, beside train_pranet's numbers; (d)
+              configs/deeplabv2_r101_adv.yaml with it on gta5_train ->
+              cityscapes_train files, 3 steps of 4 + 4, the target at
+              1024x512 with no jitter, beside train_fada_files' numbers.
+The online phases cut the datasets to their steps (``_FirstItems``); each
+earlier phase keeps its depth.
 The PraNet phases set INPUT.SOURCE_INPUT_SIZE_TRAIN and
 TARGET_INPUT_SIZE_TRAIN to 352 squared besides the data, the output and the
 run's length: the configs leave them at their defaults, to which the
 readers resize each item after the pra transform (ROADMAP Queue 3).
-No hand kernel lies on the DeepLab path, on the attn training path or on the
-PraNet paths, FADA's and self-distillation's included: their phases check
-that none of the three launched.
+Hand kernels lie on the GALD paths (#1 and #2: serving, training, FADA and
+online distillation) and on the attn eval paths (#3: eval, serving, the
+bli_val evals and the online attn teacher); no hand kernel lies on the
+DeepLab, VGG16 or PraNet paths, nor on attn training (source, FADA or the
+online student) nor on the device augmentation: their phases check that
+none of the three launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
@@ -168,8 +209,9 @@ phases (kernels, kernels_bwd, kernels_mbconv, serve, train, eval_attn,
 serve_attn, train_deeplab, eval_deeplab, serve_deeplab, train_attn,
 train_fada_deeplab, train_fada_gald, train_fada_attn, fada_vgg16, data_files,
 train_fada_files, saveres_cityscapes, train_distill_files, train_attn_files,
-train_pranet, eval_pranet, serve_pranet, train_fada_pranet; device and build
-always run) and prints no result lines: an aid while
+train_pranet, eval_pranet, serve_pranet, train_fada_pranet, train_distill_online,
+train_distill_online_gald, train_distill_online_polyp, device_aug; device and
+build always run) and prints no result lines: an aid while
 working on one path.  A phase before data_files that evaluates or serves a
 checkpoint makes a seeded one when the phase that trains it did not run; a
 phase after it that reads another's output (files, a checkpoint,
@@ -179,6 +221,7 @@ pseudo-labels) raises, naming that phase.
 from __future__ import annotations
 
 import argparse
+import copy
 import http.client
 import io
 import json
@@ -319,6 +362,20 @@ ATTN_PR9_STEP_MS = 273.8
 # this share of their largest magnitude (float32 sums in other orders through
 # 20 convolutions; cuDNN without TF32)
 DEEPLAB_CPU_TOLERANCE = 1e-4
+# online distillation: the steps each phase takes (the datasets cut to that
+# many batches), and the criss-cross launches of a GALD online step (teacher
+# 2 forwards; student 2 forwards, 2 backwards); DISTILL.CONFIDENCE_THRESHOLD
+# of the deeplab phase
+ONLINE_STEPS = {"deeplab": 2, "gald": 3, "attn": 3, "pranet": 2}
+ONLINE_GALD_LAUNCHES = (4, 2)
+ONLINE_THRESHOLD = 0.9
+# the device augmentation's apply functions on the card against the CPU with
+# the same draws: float32 transcendentals and sums in other orders (x255
+# after TO_BGR255, x1/0.224 after the ImageNet normalisation)
+DEVICE_AUG_TOLERANCE = 1e-5
+DEVICE_AUG_EPOCHS = 2
+# numbers of one phase that a later one reports beside its own
+MEASURED = {}
 
 
 def log(msg: str) -> None:
@@ -416,23 +473,40 @@ def cc_bwd_bound(shape, dtype):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def bwd_pass_us(q, k, v, g, calls: int = 10) -> list:
-    """Median device time of each of the backward's three kernel launches
-    (row statistics, columns, rows and the sum) over the last ``calls`` of
-    ``calls + 5`` calls, from torch.profiler's CUDA activity (the tracer may
-    miss the first launches after it starts, so the window ends on whole
-    calls)."""
+def _pass_us(run, kernel: str, passes: int, calls: int = 10):
+    """Median device time of each of the ``passes`` launches of ``kernel`` that
+    one ``run()`` makes, over the last ``calls`` of ``calls + 5`` runs, from
+    torch.profiler's CUDA activity (the tracer may miss the first launches
+    after it starts, so the window ends on whole calls).  None when the
+    tracer recorded no launch of it in two tries: it saw no device activity
+    (it has missed a whole first use in a process), and the per-pass times
+    are not measured."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls + 5):
-            ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if "cc_attention_bwd_kernel" in e.name),
-                    key=lambda e: e.time_range.start)[-3 * calls:]
-    if len(events) != 3 * calls:
-        raise AssertionError(f"profiled {len(events)} backward launches, want {3 * calls}")
-    return [float(np.median([e.device_time for e in events[i::3]])) for i in range(3)]
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls + 5):
+                run()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if kernel in e.name),
+                        key=lambda e: e.time_range.start)[-passes * calls:]
+        if events:
+            break
+    if not events:
+        return None
+    if len(events) != passes * calls:
+        raise AssertionError(f"profiled {len(events)} launches of {kernel}, want "
+                             f"{passes * calls}")
+    return [float(np.median([e.device_time for e in events[i::passes]]))
+            for i in range(passes)]
+
+
+def _log_passes(names, passes) -> None:
+    if passes is None:
+        log("[kernel]   by pass: not measured (torch.profiler recorded no device activity)")
+    else:
+        log("[kernel]   by pass (torch.profiler, device us): " + ", ".join(
+            f"{name} {us:.2f}" for name, us in zip(names, passes)))
 
 
 def phase_kernels_bwd() -> dict:
@@ -484,30 +558,13 @@ def phase_kernels_bwd() -> dict:
             log(f"[kernel]   {ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
                 f"({bound_by}), plain version {plain_ms * 1e3:.2f} us")
             if dtype == torch.float32:
-                passes = bwd_pass_us(q, k, v, g)
-                log(f"[kernel]   by pass (torch.profiler, device us): " + ", ".join(
-                    f"{name} {us:.2f}" for name, us in zip(ccattn.BWD_PASSES, passes)))
+                _log_passes(ccattn.BWD_PASSES, _pass_us(
+                    lambda: ccattn.cc_attention_core_bwd_cuda(q, k, v, g),
+                    "cc_attention_bwd_kernel", 3))
             if shape == TRAIN_CC_SHAPE and dtype == torch.float32:
                 result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                           "bound_ms": bound_ms, "bound_by": bound_by}
     return result
-
-
-def fwd_pass_us(q, k, v, calls: int = 10) -> list:
-    """Median device time of each of the forward's two kernel launches (rows;
-    columns and the sum) over the last ``calls`` of ``calls + 5`` calls, from
-    torch.profiler's CUDA activity."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls + 5):
-            ccattn.cc_attention_core_cuda(q, k, v)
-        torch.cuda.synchronize()
-    events = sorted((e for e in prof.events() if "cc_attention_fwd_kernel" in e.name),
-                    key=lambda e: e.time_range.start)[-2 * calls:]
-    if len(events) != 2 * calls:
-        raise AssertionError(f"profiled {len(events)} forward launches, want {2 * calls}")
-    return [float(np.median([e.device_time for e in events[i::2]])) for i in range(2)]
 
 
 def cc_sdpa(q, k, v, mask):
@@ -582,9 +639,9 @@ def phase_kernels() -> dict:
                 f"({bound_by}), plain version {plain_ms * 1e3:.2f} us, masked SDPA "
                 f"{library_ms * 1e3:.2f} us")
             if dtype == torch.float32:
-                passes = fwd_pass_us(q, k, v)
-                log(f"[kernel]   by pass (torch.profiler, device us): " + ", ".join(
-                    f"{name} {us:.2f}" for name, us in zip(ccattn.FWD_PASSES, passes)))
+                _log_passes(ccattn.FWD_PASSES, _pass_us(
+                    lambda: ccattn.cc_attention_core_cuda(q, k, v),
+                    "cc_attention_fwd_kernel", 2))
             if shape in (MAIN_CC_SHAPE, TRAIN_CC_SHAPE) and dtype == torch.float32:
                 result[shape] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                                  "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1141,7 +1198,7 @@ def _report_steps(tag: str, trainer, card: str, peak_mib: float, batch: int = 0)
     step_ms = float(np.median(times)) * 1e3
     batch = batch or trainer.cfg.SOLVER.BATCH_SIZE
     log(f"[{tag}] on {card}: {step_ms:.1f} ms/step of {batch} (median of steps "
-        f"2..{trainer.state.step}; first step "
+        f"2..{len(times) + 1}; first step "
         f"{trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
         f"{batch / step_ms * 1e3:.2f} images/s, data share of a step "
         f"{sum(waits) / sum(times):.1%}, peak memory {peak_mib:.0f} MiB, float32, TF32 off")
@@ -2027,6 +2084,8 @@ def phase_train_fada_files(tmp: str, card: str) -> int:
     log(f"[train_fada_files] {names[0]} ({type(trainer.src_loader.dataset).__name__}) -> "
         f"{names[1]} ({type(trainer.tgt_loader.dataset.dataset).__name__}); data share "
         f"{_data_share(trainer):.1%}")
+    MEASURED["train_fada_files"] = (
+        float(np.median(trainer.meters.meters["time"].series[1:])) * 1e3, _data_share(trainer))
     return _check_no_kernel("train_fada_files")
 
 
@@ -2182,6 +2241,11 @@ def phase_train_distill_files(tmp: str, card: str) -> int:
     return launches
 
 
+def _loader_procs() -> int:
+    """The worker processes of the file phases: the host's cores less 2."""
+    return max(1, len(os.sched_getaffinity(0)) - 2)
+
+
 def phase_train_attn_files(tmp: str, card: str) -> int:
     """configs/attn_src_kvasir.yaml on polyp_train files, with the config's
     threads and then with N worker processes (N = the host's cores less 2):
@@ -2199,7 +2263,7 @@ def phase_train_attn_files(tmp: str, card: str) -> int:
     )
 
     root = _data_root(tmp)
-    procs = max(1, len(os.sched_getaffinity(0)) - 2)
+    procs = _loader_procs()
 
     def opts(workers: int, out_dir: str):
         return ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
@@ -2268,14 +2332,22 @@ def phase_train_attn_files(tmp: str, card: str) -> int:
         f"{k}: {rates[-1]:.2f} images/s, data share {share:.1%} (the first epoch, the ramp: "
         f"{rates[0]:.2f} images/s)" for k, (rates, share) in results.items()))
 
+    MEASURED["train_attn_files"] = {k: (rates[-1], share) for k, (rates, share) in results.items()}
+    return _eval_bli_files("eval_bli_files", tmp, root, pth)
+
+
+def _eval_bli_files(tag: str, tmp: str, root: str, pth: str) -> int:
+    """The attn checkpoint ``pth`` through ``cli.test`` on bli_val files with
+    the fused MBConv kernel on: 17 launches of it a forward, a finite
+    summary.  Returns the launches."""
     args = test_cli.build_parser().parse_args(
         ["-c", os.path.join(HERE, "renders", "bli.json"),
          "-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
          "DATASETS.DATASET_DIR", root, "DATASETS.TEST", "bli_val", "MODEL.FUSED_MBCONV",
-         "True", "OUTPUT_DIR", os.path.join(tmp, "eval_bli_files"), "resume", pth])
+         "True", "OUTPUT_DIR", os.path.join(tmp, tag), "resume", pth])
     cfg = load_cfg(args)
     tester = test_cli.make_tester(cfg, load_json(args.config_path),
-                                  logger=_stderr_logger("chip_smoke.eval_bli_files"))
+                                  logger=_stderr_logger(f"chip_smoke.{tag}"))
     images = len(tester.test_loader.dataset)
     torch.cuda.synchronize()
     _zero_kernel_counts()
@@ -2285,8 +2357,8 @@ def phase_train_attn_files(tmp: str, card: str) -> int:
     wall = time.perf_counter() - t0
     launches = mbconv.KERNEL_LAUNCHES
     forwards = -(-images // cfg.TEST.BATCH_SIZE)
-    log(f"[eval_bli_files] {pth} through cli.test on bli_val ({images} BLI images at "
-        f"{ATTN_SIZE}x{ATTN_SIZE}, batch {cfg.TEST.BATCH_SIZE}) on {card}: {wall:.2f} s; "
+    log(f"[{tag}] {pth} through cli.test on bli_val ({images} BLI images at "
+        f"{ATTN_SIZE}x{ATTN_SIZE}, batch {cfg.TEST.BATCH_SIZE}): {wall:.2f} s; "
         f"fused_mbconv_fwd launched {launches} times over {forwards} forwards; micro mIoU "
         f"{summary['micro_miou']:.4f}")
     scalars = [v for v in summary.values() if isinstance(v, float)]
@@ -2407,6 +2479,7 @@ def phase_train_pranet(tmp: str, card: str) -> int:
         + f"; data share {_data_share(trainer):.1%}; peak memory {peak_mib:.0f} MiB; "
         f"float32, TF32 off")
 
+    MEASURED["train_pranet"] = (batch / batch_ms * 1e3, _data_share(trainer))
     # the checkpoint loads back into Tester through `resume latest`
     tester = Tester(load_cfg(train_src.build_parser().parse_args(opts + ["resume", "latest"])),
                     logger)
@@ -2631,6 +2704,474 @@ def phase_train_fada_pranet(tmp: str, card: str) -> int:
     return launches
 
 
+class _FirstItems:
+    """The first ``n`` items of ``dataset``: a phase cut to fewer steps."""
+
+    def __init__(self, dataset, n: int):
+        if n > len(dataset):
+            raise AssertionError(f"{type(dataset).__name__} has {len(dataset)} items, not {n}")
+        self.dataset, self.n = dataset, n
+        self.image_paths = dataset.image_paths[:n]
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.dataset[i]
+
+
+def _online_trainer(tag: str, opts, batches=None):
+    """``cli.train_distill``'s online trainer for ``opts`` (DISTILL.ONLINE on),
+    its student from seeded weights, its loader cut to ``batches`` batches."""
+    from rnd_semantic_segmentation_torch.cli import train_distill
+
+    cfg = load_cfg(train_distill.build_parser().parse_args(opts))
+    if not cfg.DISTILL.ONLINE:
+        raise AssertionError(f"[{tag}] DISTILL.ONLINE is off")
+    trainer = train_distill.make_online_trainer(
+        cfg.MODEL.NAME.split("_")[0] + "_distill", cfg,
+        logger=_stderr_logger(f"chip_smoke.{tag}", logging.INFO))
+    loader = trainer.train_loader
+    if batches is not None:
+        if loader.worker_processes:
+            raise AssertionError(f"[{tag}] a cut dataset would not reach forked workers")
+        loader.dataset = _FirstItems(loader.dataset, batches * loader.batch_size)
+        trainer.steps_per_epoch = len(loader)
+    randomize_weights_(trainer.segmentor, seed=0)
+    return trainer
+
+
+def _run_online(tag: str, trainer, card: str) -> dict:
+    """Trains the online trainer for its epoch with the kernel counts set to 0
+    just before; records each step's loss, the first batch and every
+    pseudo-label map.  Checks the losses are finite, every student
+    parameter moved and every teacher tensor stayed bit-equal; returns the
+    records and the three kernel counts."""
+    from rnd_semantic_segmentation_torch.train import distill
+
+    student = {n: p.detach().clone() for n, p in trainer.segmentor.named_parameters()}
+    teacher = {k: v.clone() for k, v in trainer.teacher.state_dict().items()}
+    rec = {"losses": [], "images": [], "labels": []}
+    step, real = trainer.step_fn, distill.pseudo_labels
+
+    def recording_step(batch, epoch0):
+        if not rec["images"]:
+            rec["images"].append(batch["image"].clone())
+        out = step(batch, epoch0)
+        rec["losses"].append(out["loss"])
+        return out
+
+    def recording_labels(logits, *args):
+        labels = real(logits, *args)
+        rec["labels"].append(labels)
+        return labels
+
+    trainer.step_fn = recording_step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    with mock.patch.object(distill, "pseudo_labels", recording_labels):
+        trainer.train()
+    torch.cuda.synchronize()
+    rec["counts"] = tuple(getattr(m, n) for m, n in KERNEL_COUNTERS)
+    rec["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    trainer.step_fn = step
+    if not rec["losses"] or not all(np.isfinite(rec["losses"])):
+        raise AssertionError(f"[{tag}] losses {rec['losses']}")
+    moved = [(p.detach() - student[n]).abs().max().item()
+             for n, p in trainer.segmentor.named_parameters()]
+    changed = [k for k, v in trainer.teacher.state_dict().items() if not torch.equal(v, teacher[k])]
+    cfg = trainer.cfg
+    log(f"[{tag}] {cfg.MODEL.NAME} online from {cfg.DISTILL.TEACHER} (threshold "
+        f"{cfg.DISTILL.CONFIDENCE_THRESHOLD}): {trainer.state.step} steps over "
+        f"{len(trainer.train_loader.dataset)} images of {cfg.DATASETS.SOURCE_TRAIN}, losses "
+        f"{[round(v, 4) for v in rec['losses']]}; {sum(m > 0 for m in moved)} of {len(moved)} "
+        f"student parameters moved; {len(changed)} of {len(teacher)} teacher tensors changed")
+    if not all(m > 0 and np.isfinite(m) for m in moved) or changed:
+        raise AssertionError(f"[{tag}] a student parameter did not move, or the teacher "
+                             f"changed: {changed[:5]}")
+    _report_steps(tag, trainer, card, rec["peak_mib"])
+    return rec
+
+
+def phase_train_distill_online(tmp: str, card: str) -> int:
+    """configs/deeplabv2_r101_tgt_self_distill.yaml online, its teacher
+    train_fada_files' AsppFada-1.pth as saveres_cityscapes centred it, at
+    threshold 0.9, on the cityscapes
+    files (the reader's pseudo-label PNGs, from saveres_cityscapes, are read
+    and ignored): batch 5 at 1024x512, 2 steps.  The first batch's labels
+    must be the argmax of a ``Tester`` forward of the teacher, and 255
+    exactly where its largest probability is below 0.9."""
+    root = _data_root(tmp)
+    _needs(os.path.join(root, "cityscapes", "soft_labels", "inference", "cityscapes_train"),
+           "saveres_cityscapes")
+    # train_fada_files' AsppFada-1.pth as saveres_cityscapes centred it: uncentred,
+    # it gives one class everywhere at probability 1.000 (0% ignored at 0.9)
+    teacher = _needs(os.path.join(tmp, "saveres_cityscapes", "teacher.pth"), "saveres_cityscapes")
+    opts = ["-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_tgt_self_distill.yaml"),
+            "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1",
+            "OUTPUT_DIR", os.path.join(tmp, "train_distill_online"), "DISTILL.ONLINE", "True",
+            "DISTILL.TEACHER", teacher, "DISTILL.CONFIDENCE_THRESHOLD", str(ONLINE_THRESHOLD)]
+    trainer = _online_trainer("train_distill_online", opts)
+    geometry = (trainer.cfg.MODEL.NAME, trainer.cfg.SOLVER.BATCH_SIZE,
+                tuple(trainer.cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN))
+    if geometry != ("deeplab_resnet101", 5, (1024, 512)):
+        raise AssertionError(f"configs/deeplabv2_r101_tgt_self_distill.yaml gives {geometry}")
+    rec = _run_online("train_distill_online", trainer, card)
+    launches = _check_no_kernel("train_distill_online")
+    if trainer.state.step != ONLINE_STEPS["deeplab"]:
+        raise AssertionError(f"{trainer.state.step} steps, want {ONLINE_STEPS['deeplab']}")
+
+    tester = Tester(load_cfg(train_src.build_parser().parse_args(opts + ["resume", teacher])),
+                    _stderr_logger("chip_smoke.train_distill_online"))
+    tester._load_checkpoint()
+    x = rec["images"][0].permute(0, 3, 1, 2).contiguous()
+    conf, arg = tester._probs_impl(x, tuple(x.shape[2:])).max(dim=1)
+    want = torch.where(conf >= ONLINE_THRESHOLD, arg.int(), trainer.cfg.INPUT.IGNORE_LABEL)
+    got = rec["labels"][0]
+    differ = int((got != want).sum())
+    ignored = (got == trainer.cfg.INPUT.IGNORE_LABEL).float().mean().item()
+    classes = sorted(set(got.unique().tolist()) - {trainer.cfg.INPUT.IGNORE_LABEL})
+    log(f"[train_distill_online] the first batch's pseudo-labels {tuple(got.shape)} against "
+        f"a Tester forward of the teacher: {differ} of {got.numel()} pixels differ; "
+        f"{ignored:.1%} ignored (largest probability below {ONLINE_THRESHOLD}), classes "
+        f"present {classes}; the teacher's largest probability spans "
+        f"{conf.min().item():.3f} to {conf.max().item():.3f}")
+    if differ > MAX_TIE_SHARE * got.numel():
+        raise AssertionError(f"the pseudo-labels differ from the teacher's argmax at {differ} "
+                             f"pixels")
+    return launches
+
+
+def phase_train_distill_online_gald(tmp: str, card: str):
+    """configs/gald_tgt_self_distill.yaml online at full width, its teacher the
+    train phase's Gald-1.pth (seeded when that phase did not run): batch 5 of
+    synthetic images at 1024x512, 3 steps.  Kernel #1 launches 4 times a step
+    (2 teacher, 2 student) and #2 twice; the student's criss-cross attention
+    receives gradients and moves."""
+    out_dir = os.path.join(tmp, "train_distill_online_gald")
+    opts = ["-cfg", os.path.join(HERE, "configs", "gald_tgt_self_distill.yaml"),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train", "SOLVER.EPOCHS", "1",
+            "OUTPUT_DIR", out_dir, "DISTILL.ONLINE", "True"]
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    steps = ONLINE_STEPS["gald"]
+    pth = os.path.join(tmp, "train", "Gald-1.pth")
+    if not os.path.exists(pth):
+        pth = os.path.join(tmp, "gald_teacher.pth")
+        _seeded_checkpoint("train_distill_online_gald", cfg, pth)
+    trainer = _online_trainer("train_distill_online_gald", opts + [
+        "DATASETS.SYNTHETIC_LENGTH", str(cfg.SOLVER.BATCH_SIZE * steps), "DISTILL.TEACHER", pth])
+    geometry = (trainer.cfg.MODEL.NAME, trainer.cfg.MODEL.NUM_CLASSES,
+                trainer.cfg.SOLVER.BATCH_SIZE, tuple(trainer.cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN))
+    if geometry != ("gald_hardnet68", 19, 5, (1024, 512)):
+        raise AssertionError(f"configs/gald_tgt_self_distill.yaml gives {geometry}")
+    relation = trainer.segmentor.parts["decoder"].long_relation
+    attention = {n: p for n, p in relation.named_parameters() if n in ATTENTION_PARAMS}
+    before = {n: p.detach().clone() for n, p in attention.items()}
+    rec = _run_online("train_distill_online_gald", trainer, card)
+    fwd, bwd, fused = rec["counts"]
+    want = tuple(n * steps for n in ONLINE_GALD_LAUNCHES)
+    log(f"[train_distill_online_gald] launches over {trainer.state.step} steps: "
+        f"cc_attention_fwd {fwd}, cc_attention_bwd {bwd}, fused_mbconv_fwd {fused}; want "
+        f"{want[0]} and {want[1]} ({ONLINE_GALD_LAUNCHES[0]} and {ONLINE_GALD_LAUNCHES[1]} a "
+        f"step) and 0")
+    if trainer.state.step != steps or (fwd, bwd) != want or fused:
+        raise AssertionError(f"{trainer.state.step} steps, launches {rec['counts']}")
+    for name, p in attention.items():
+        grad = 0.0 if p.grad is None else p.grad.abs().max().item()
+        moved = (p.detach() - before[name]).abs().max().item()
+        log(f"[train_distill_online_gald]   student long_relation.{name}: max |grad| "
+            f"{grad:.3e}, moved {moved:.3e}")
+        if not (grad > 0 and moved > 0 and np.isfinite(grad)):
+            raise AssertionError(f"long_relation.{name} got no gradient or did not move")
+    labels = rec["labels"][0]
+    log(f"[train_distill_online_gald] pseudo-labels {tuple(labels.shape)}, classes present "
+        f"{len(labels.unique())} of 19")
+    return fwd, bwd
+
+
+def _attn_files_checkpoint(tmp: str) -> str:
+    return _needs(os.path.join(tmp, f"train_attn_files_{_loader_procs()}",
+                               f"Attn-{ATTN_FILE_EPOCHS}.pth"), "train_attn_files")
+
+
+def phase_train_distill_online_polyp(tmp: str, card: str) -> int:
+    """attn B2 online from train_attn_files' checkpoint with
+    MODEL.FUSED_MBCONV on (the teacher takes kernel #3 17 times a step, the
+    student never), 3 steps of 20 at 512x512 of polyp_train files; then
+    pranet_res2net50 online from train_pranet's PraNet-1.pth, 2 batches of
+    16, each at the three rates, its pseudo-labels binary.  Returns kernel
+    #3's launches."""
+    root = _data_root(tmp)
+    steps = ONLINE_STEPS["attn"]
+    opts = ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+            "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1", "MODEL.FUSED_MBCONV", "True",
+            "OUTPUT_DIR", os.path.join(tmp, "train_distill_online_attn"),
+            "DISTILL.ONLINE", "True", "DISTILL.TEACHER", _attn_files_checkpoint(tmp)]
+    trainer = _online_trainer("train_distill_online_attn", opts, batches=steps)
+    rec = _run_online("train_distill_online_attn", trainer, card)
+    fwd, bwd, fused = rec["counts"]
+    fg = torch.cat([v.flatten() for v in rec["labels"]]).float().mean().item()
+    log(f"[train_distill_online_attn] launches over {trainer.state.step} steps: "
+        f"fused_mbconv_fwd {fused} (want {MBCONV_LAUNCHES_PER_FORWARD} x {steps}, the "
+        f"teacher's), cc_attention_fwd {fwd}, cc_attention_bwd {bwd}; pseudo-label "
+        f"foreground share {fg:.1%}")
+    if trainer.state.step != steps or (fwd, bwd, fused) != (
+            0, 0, MBCONV_LAUNCHES_PER_FORWARD * steps):
+        raise AssertionError(f"{trainer.state.step} steps, launches {rec['counts']}")
+
+    batches = ONLINE_STEPS["pranet"]
+    opts = _pranet_opts("pranet_src_polyp.yaml", root,
+                        os.path.join(tmp, "train_distill_online_pranet"),
+                        "SOLVER.CHECKPOINT_PERIOD", "5", "DISTILL.ONLINE", "True",
+                        "DISTILL.TEACHER", _pranet_checkpoint(tmp))
+    trainer = _online_trainer("train_distill_online_pranet", opts, batches=batches)
+    rec = _run_online("train_distill_online_pranet", trainer, card)
+    _check_no_kernel("train_distill_online_pranet")
+    values = set(torch.cat([v.flatten() for v in rec["labels"]]).unique().tolist())
+    shares = [round(v.float().mean().item(), 4) for v in rec["labels"]]
+    log(f"[train_distill_online_pranet] {trainer.state.step} steps over {batches} batches "
+        f"(sides {[tuple(v.shape[1:]) for v in rec['labels']]}): every step's loss finite; "
+        f"pseudo-label values {sorted(values)}, foreground share per step {shares}")
+    if trainer.state.step != 3 * batches or len(rec["losses"]) != 3 * batches \
+            or not values <= {0, 1}:
+        raise AssertionError(f"{trainer.state.step} steps, pseudo-label values {values}")
+    return fused
+
+
+def _device_aug_apply_on_card(device) -> None:
+    """Each apply function on the card against the same function on the CPU
+    with the same draws."""
+    from rnd_semantic_segmentation_torch.data import device_pipe as dp
+
+    def on(draws):
+        return {k: on(v) if isinstance(v, dict) else v.to(device) for k, v in draws.items()}
+
+    gen = torch.Generator().manual_seed(0)
+    cases = []
+    for name, (h, w), draw, fn, kw in (
+            ("augment_batch_pra", (352, 352), lambda b: dp.draw_pra(gen, b),
+             dp.augment_batch_pra, {}),
+            ("augment_batch_attn", (512, 512), lambda b: dp.draw_attn(gen, b, prob=1.0),
+             dp.augment_batch_attn, {}),
+            ("augment_batch", (1052, 1914),
+             lambda b: dp.draw_aspp(gen, b, 0.5, (0.5, 0.5, 0.5, 0.2)), dp.augment_batch,
+             {"size": (720, 1280)})):
+        x = torch.rand(4, h, w, 3, generator=gen)
+        y = torch.randint(0, 19, (4, h, w), generator=gen, dtype=torch.int32)
+        draws = draw(4)
+        ref = fn(x, y, draws, **kw)
+        got = fn(x.to(device), y.to(device), on(draws), **kw)
+        err = (got["image"].cpu() - ref["image"]).abs().max().item()
+        scale = 1 / min(dp.IMAGENET_STD) if fn is not dp.augment_batch_attn else 1.0
+        labels = int((got["label"].cpu() != ref["label"]).sum())
+        cases.append(f"{name} {tuple(x.shape)}: image max abs difference {err:.2e} "
+                     f"(tolerance {DEVICE_AUG_TOLERANCE * scale:.2e}), {labels} labels differ")
+        if not err <= DEVICE_AUG_TOLERANCE * scale or labels:
+            raise AssertionError(f"{name} on the card differs from the CPU: {cases[-1]}")
+    log("[device_aug] (a) the apply functions on the card against the CPU with the same "
+        "draws: " + "; ".join(cases))
+
+
+def _eval_train_gap(segmentor, x: torch.Tensor) -> float:
+    """||eval-mode output - train-mode output|| / ||train-mode output|| of a
+    copy of ``segmentor`` on ``x`` (NCHW): how far the running statistics
+    are from the batch's (the train-mode forward's drop-connect seeded)."""
+    model = copy.deepcopy(segmentor)
+    with torch.no_grad():
+        evals, _ = model(x, train=False)
+        trains, _ = model(x, train=True,
+                          generator=torch.Generator(device=x.device).manual_seed(0))
+    return ((evals[0] - trains[0]).norm() / trains[0].norm()).item()
+
+
+def phase_device_aug(tmp: str, card: str) -> int:
+    """DATA_PIPE.DEVICE_AUG: (a) the apply functions on the card against the
+    CPU; (b) configs/attn_src_kvasir.yaml with it and SOLVER.BN_RECAL_BATCHES
+    8 on polyp_train files with N worker processes (as train_attn_files),
+    two epochs of 6 steps of 20, then the recalibration's checks and the
+    re-saved checkpoint through ``cli.test`` on bli_val with kernel #3;
+    (c) configs/pranet_src_polyp_tpu.yaml with only NATIVE_DECODE and
+    ASYNC_CHECKPOINT off besides the data, output and run length, one epoch
+    of 7 batches of 16; (d) configs/deeplabv2_r101_adv.yaml with it on
+    gta5_train -> cityscapes_train files, 4 + 4 a step.  Returns kernel #3's
+    launches (the bli_val eval)."""
+    from rnd_semantic_segmentation_torch.data import device_pipe as dp
+    from rnd_semantic_segmentation_torch.data import device_prefetch
+    from rnd_semantic_segmentation_torch.train import trainer as trainer_module
+
+    root = _data_root(tmp)
+    device = resolve_device("cuda")
+    _device_aug_apply_on_card(device)
+
+    # (b) attn, device augmentation and BN recalibration
+    procs = _loader_procs()
+    out_dir = os.path.join(tmp, "device_aug_attn")
+    opts = ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+            "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", str(DEVICE_AUG_EPOCHS),
+            "SOLVER.CHECKPOINT_PERIOD", "1", "MODEL.FUSED_MBCONV", "True",
+            "DATA_PIPE.WORKER_PROCESSES", str(procs), "DATA_PIPE.DEVICE_AUG", "True",
+            "SOLVER.BN_RECAL_BATCHES", "8", "OUTPUT_DIR", out_dir]
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    trainer = train_src.make_trainer("attn", cfg, logger=_stderr_logger(
+        "chip_smoke.device_aug", logging.INFO))
+    recal = {}
+    real = trainer_module.recalibrate_batch_stats
+
+    def recording(segmentor, batches, **kw):
+        recal["before"] = copy.deepcopy(segmentor.state_dict())
+        recal["batches"] = len(batches)
+        t0 = time.perf_counter()
+        n = real(segmentor, batches, **kw)
+        torch.cuda.synchronize()
+        recal["ms"] = (time.perf_counter() - t0) * 1e3
+        return n
+
+    try:
+        randomize_weights_(trainer.segmentor, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        with mock.patch.object(trainer_module, "recalibrate_batch_stats", recording):
+            trainer.train()
+        torch.cuda.synchronize()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        _check_no_kernel("device_aug")
+        loader = trainer.train_loader
+        loader.set_epoch(1)
+        raw = next(device_prefetch(iter(loader), 1, device=device))
+    finally:
+        trainer.train_loader.close()
+    per_epoch = len(trainer.train_loader)
+    steps = per_epoch * DEVICE_AUG_EPOCHS
+    if trainer.state.step != steps or not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"{trainer.state.step} steps, losses {trainer.loss_data}")
+    times = trainer.meters.meters["time"].series
+    waits = trainer.meters.meters["data"].series
+    rate = cfg.SOLVER.BATCH_SIZE * per_epoch / sum(times[per_epoch:])
+    share = sum(waits[per_epoch:]) / sum(times[per_epoch:])
+    before_files = MEASURED.get("train_attn_files", {}).get(f"{procs} worker processes")
+    log(f"[device_aug] (b) attn_src_kvasir.yaml with DEVICE_AUG on polyp_train files, {procs} "
+        f"worker processes, {DEVICE_AUG_EPOCHS} epochs of {per_epoch} steps of "
+        f"{cfg.SOLVER.BATCH_SIZE} at {ATTN_SIZE}x{ATTN_SIZE} on {card}: the second epoch "
+        f"{rate:.2f} images/s, data share {share:.1%}; the host's attn transform in "
+        f"train_attn_files of this run: " + (
+            f"{before_files[0]:.2f} images/s, data share {before_files[1]:.1%}"
+            if before_files else "not run in this call")
+        + f"; losses {[round(v, 4) for v in trainer.loss_data]}; peak {peak_mib:.0f} MiB")
+
+    before = recal["before"]
+    after = trainer.segmentor.state_dict()
+    stats = [k for k in after if k.endswith(("running_mean", "running_var"))]
+    still = [k for k in stats if torch.equal(after[k], before[k])]
+    log(f"[device_aug] (b) BN recalibration over {recal['batches']} device-augmented batches "
+        f"(SOLVER.BN_RECAL_BATCHES 8; an epoch of the loader holds {per_epoch}) in "
+        f"{recal['ms']:.0f} ms: {len(stats) - len(still)} of {len(stats)} running statistics "
+        f"changed")
+    if still or recal["batches"] != min(8, per_epoch):
+        raise AssertionError(f"running statistics unchanged: {still[:5]}")
+    pth = os.path.join(out_dir, f"Attn-{DEVICE_AUG_EPOCHS}.pth")
+    ckpt = torch.load(pth, map_location="cpu", weights_only=True)
+    other = []
+    for part in trainer.spec.modules:
+        for key, value in ckpt[part].items():
+            full = f"parts.{part}.{key}"
+            if not torch.equal(value, after[full].cpu()):
+                raise AssertionError(f"{pth}: {full} is not the recalibrated model's")
+            if not key.endswith(("running_mean", "running_var")) \
+                    and not torch.equal(value, before[full].cpu()):
+                other.append(full)
+    if other or "optimizer_encoder" not in ckpt:
+        raise AssertionError(f"{pth} differs from the state before the recalibration outside "
+                             f"the BatchNorm statistics: {other[:5]}")
+    batch = trainer.device_augs[0](raw, 0)
+    x = batch["image"].permute(0, 3, 1, 2).contiguous()
+    pre = copy.deepcopy(trainer.segmentor)
+    pre.load_state_dict(before)
+    gap_before, gap_after = _eval_train_gap(pre, x), _eval_train_gap(trainer.segmentor, x)
+    log(f"[device_aug] (b) {pth} is the recalibrated model, and differs from the state "
+        f"before only in BatchNorm statistics; on one train batch, ||eval - train|| / "
+        f"||train|| of the output: {gap_before:.4f} before, {gap_after:.4f} after")
+    if not gap_after < gap_before:
+        raise AssertionError("the recalibration did not bring eval closer to train mode")
+    del pre
+    launches = _eval_bli_files("device_aug_eval_bli", tmp, root, pth)
+
+    # (c) the PraNet TPU recipe with the knobs that still raise turned off
+    out_dir = os.path.join(tmp, "device_aug_pranet")
+    opts = _pranet_opts("pranet_src_polyp_tpu.yaml", root, out_dir,
+                        "DATA_PIPE.NATIVE_DECODE", "False", "SOLVER.ASYNC_CHECKPOINT", "False")
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    if not (cfg.DATA_PIPE.DEVICE_AUG and cfg.DATA_PIPE.WORKER_PROCESSES):
+        raise AssertionError("configs/pranet_src_polyp_tpu.yaml: DEVICE_AUG or worker "
+                             "processes off")
+    trainer = train_src.make_trainer("pranet", cfg, logger=_stderr_logger(
+        "chip_smoke.device_aug", logging.INFO))
+    try:
+        randomize_weights_(trainer.segmentor, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        trainer.train()
+        torch.cuda.synchronize()
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        _check_no_kernel("device_aug")
+    finally:
+        trainer.train_loader.close()
+    batches = len(trainer.train_loader)
+    if trainer.state.step != 3 * batches or not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"{trainer.state.step} steps, losses {trainer.loss_data}")
+    batch_ms = float(np.median(trainer.meters.meters["time"].series[1:])) * 1e3
+    before_pranet = MEASURED.get("train_pranet")
+    log(f"[device_aug] (c) pranet_src_polyp_tpu.yaml ({cfg.DATA_PIPE.WORKER_PROCESSES} worker "
+        f"processes, DEVICE_AUG) on {card}: {batches} batches of {cfg.SOLVER.BATCH_SIZE} at "
+        f"the three rates, {batch_ms:.1f} ms a batch (median of 2..), "
+        f"{cfg.SOLVER.BATCH_SIZE / batch_ms * 1e3:.2f} images/s, data share "
+        f"{_data_share(trainer):.1%}, peak {peak_mib:.0f} MiB; train_pranet of this run (4 "
+        f"threads, the host's pra transform): " + (
+            f"{before_pranet[0]:.2f} images/s, data share {before_pranet[1]:.1%}"
+            if before_pranet else "not run in this call"))
+
+    # (d) FADA, both streams through the device
+    seen = []
+    augment = train_adv.FadaTrainer._augment
+
+    def recording_augment(self, args, iteration):
+        out = augment(self, args, iteration)
+        if not seen:
+            seen.append((args, out, self))
+        return out
+
+    with mock.patch.object(train_adv.FadaTrainer, "_augment", recording_augment):
+        trainer = _run_fada("device_aug_fada", tmp, card, "deeplabv2_r101_adv.yaml",
+                            DEEPLAB_FADA_GEOMETRY, FILE_STEPS["fada"], "DATA_PIPE.DEVICE_AUG",
+                            "True", data_dir=root)
+    _check_no_kernel("device_aug")
+    (raw_src, raw_tgt), (src, tgt), fada = seen[0]
+    inp = fada.cfg.INPUT
+    plain = dp.augment_batch(raw_tgt["image"], raw_tgt["label"], {"jitter": {}},
+                             size=(inp.TARGET_INPUT_SIZE_TRAIN[1], inp.TARGET_INPUT_SIZE_TRAIN[0]),
+                             mean=tuple(inp.PIXEL_MEAN), std=tuple(inp.PIXEL_STD))
+    before_fada = MEASURED.get("train_fada_files")
+    step_ms = float(np.median(trainer.meters.meters["time"].series[1:])) * 1e3
+    log(f"[device_aug] (d) deeplabv2_r101_adv.yaml with DEVICE_AUG: source "
+        f"{tuple(raw_src['image'].shape)} -> {tuple(src['image'].shape)}, target "
+        f"{tuple(raw_tgt['image'].shape)} -> {tuple(tgt['image'].shape)}; {step_ms:.1f} ms a "
+        f"step, data share {_data_share(trainer):.1%}; train_fada_files of this run (the "
+        f"host's aspp transform): " + (f"{before_fada[0]:.1f} ms a step, data share "
+                                       f"{before_fada[1]:.1%}" if before_fada
+                                       else "not run in this call"))
+    if (tuple(src["image"].shape) != (4, 720, 1280, 3)
+            or tuple(tgt["image"].shape) != (4, 512, 1024, 3)
+            or not torch.equal(tgt["image"], plain["image"])):
+        raise AssertionError("the FADA batches are not at the train sizes, or the target "
+                             "was jittered or flipped")
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -2691,15 +3232,26 @@ def main(argv=None) -> int:
         pranet_launches += phase_serve_pranet(tmp, card)
         torch.cuda.empty_cache()
         pranet_launches += phase_train_fada_pranet(tmp, card)
+        torch.cuda.empty_cache()
+        online_launches = phase_train_distill_online(tmp, card)
+        torch.cuda.empty_cache()
+        online_gald_fwd, online_gald_bwd = phase_train_distill_online_gald(tmp, card)
+        torch.cuda.empty_cache()
+        online_polyp_launches = phase_train_distill_online_polyp(tmp, card)
+        torch.cuda.empty_cache()
+        device_aug_launches = phase_device_aug(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
-        "launches": serve_launches + train_fwd_launches + fada_gald_fwd,
+        "launches": serve_launches + train_fwd_launches + fada_gald_fwd + online_gald_fwd,
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_fwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
-        "launches_pranet": pranet_launches, **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
+        "launches_pranet": pranet_launches, "launches_distill_online": online_launches,
+        "launches_distill_online_gald": online_gald_fwd, "launches_distill_online_polyp": 0,
+        "launches_device_aug": 0,
+        **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
                                           "over H*W pixels with the criss-cross mask",
         "shape": list(MAIN_CC_SHAPE),
         "at_train_shape": {**fwd[TRAIN_CC_SHAPE], "shape": list(TRAIN_CC_SHAPE)},
@@ -2707,17 +3259,20 @@ def main(argv=None) -> int:
         "name": "cc_attention_bwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_bwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
-        "launches": train_bwd_launches + fada_gald_bwd, "launches_train": train_bwd_launches,
+        "launches": train_bwd_launches + fada_gald_bwd + online_gald_bwd,
+        "launches_train": train_bwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_bwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
-        "launches_pranet": pranet_launches, **bwd, "library_ms": None,
+        "launches_pranet": pranet_launches, "launches_distill_online": online_launches,
+        "launches_distill_online_gald": online_gald_bwd, "launches_distill_online_polyp": 0,
+        "launches_device_aug": 0, **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/mbconv_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
         "launches": (eval_attn_launches + serve_attn_launches + fada_attn_launches
-                     + bli_launches),
+                     + bli_launches + online_polyp_launches + device_aug_launches),
         "launches_eval_attn": eval_attn_launches,
         "launches_serve_attn": serve_attn_launches,
         "launches_deeplab": deeplab_launches,
@@ -2725,7 +3280,10 @@ def main(argv=None) -> int:
         "launches_eval_attn_trained": eval_attn_trained_launches,
         "launches_fada_attn": fada_attn_launches, "launches_fada_deeplab": fada_launches,
         "launches_files": file_launches, "launches_eval_bli": bli_launches,
-        "launches_pranet": pranet_launches, **mb, "library_ms": None,
+        "launches_pranet": pranet_launches, "launches_distill_online": online_launches,
+        "launches_distill_online_gald": 0,
+        "launches_distill_online_polyp": online_polyp_launches,
+        "launches_device_aug_eval_bli": device_aug_launches, **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")
     log(card)

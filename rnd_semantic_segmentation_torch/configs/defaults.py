@@ -16,24 +16,30 @@ INPUT.IGNORE_LABEL, INPUT.TRAINSIZE (the pra transforms, and pranet's
 multi-scale rates in training), AUG.COLLATE,
 DATA_PIPE.NUM_WORKERS/WORKER_PROCESSES/PREFETCH/SEED, and PSEUDO_DIR (where
 ``--saveres`` writes its PNGs); and for source training (``cli.train_src``,
-and ``cli.train_distill``, which reads DISTILL.ONLINE) also
+and ``cli.train_distill``) also
 INPUT.SOURCE_INPUT_SIZE_TRAIN, INPUT.TARGET_INPUT_SIZE_TRAIN,
 INPUT.BRIGHTNESS/CONTRAST/SATURATION/HUE, INPUT.HORIZONTAL_FLIP_PROB_TRAIN,
 INPUT.INPUT_SCALES_TRAIN (the aspp train transforms), the AUG probabilities
 (the attn train transforms), INPUT.IGNORE_LABEL,
 DATASETS.SOURCE_TRAIN/TEST/SYNTHETIC_LENGTH, AUG.COLLATE, SEED, DEBUG.NANS,
-DATA_PIPE.NUM_WORKERS/WORKER_PROCESSES/PREFETCH/SEED, PSEUDO_DIR (the
-self-distill datasets' labels) and the SOLVER keys EPOCHS, LR_METHOD,
-BASE_LR, LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
-LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP, ACCUM_STEPS, CHECKPOINT_PERIOD and
-KEEP_CHECKPOINTS; and for FADA also DATASETS.TARGET_TRAIN and SOLVER.BASE_LR_D
-and ADV_WEIGHT (the FADA step, like the JAX one, reads neither LR_METHOD,
-LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP nor ACCUM_STEPS, and the FADA trainer,
-like the JAX one, prunes no checkpoint).  A knob whose counterpart is not
-ported yet raises NotImplementedError when it is set (MODEL.WEIGHTS,
-MODEL.REMAT_BLOCKS, SOLVER.REMAT, SOLVER.BN_RECAL_BATCHES,
-SOLVER.ASYNC_CHECKPOINT, DATA_PIPE.DEVICE_AUG, DATA_PIPE.NATIVE_DECODE,
-DISTILL.ONLINE, DIST.*, DEBUG.CHECKIFY).
+DATA_PIPE.NUM_WORKERS/WORKER_PROCESSES/PREFETCH/SEED, DATA_PIPE.DEVICE_AUG
+(the augmentation on the device, data/device_pipe.py, both trainers),
+PSEUDO_DIR (the self-distill datasets' labels), DISTILL.ONLINE,
+DISTILL.TEACHER and DISTILL.CONFIDENCE_THRESHOLD (online self-distillation,
+``cli.train_distill``) and the SOLVER keys EPOCHS, LR_METHOD, BASE_LR,
+LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
+LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP, ACCUM_STEPS, CHECKPOINT_PERIOD,
+KEEP_CHECKPOINTS and BN_RECAL_BATCHES (the source trainer's BatchNorm
+recalibration after the last epoch); and for FADA also DATASETS.TARGET_TRAIN
+and SOLVER.BASE_LR_D and ADV_WEIGHT (the FADA step, like the JAX one, reads
+neither LR_METHOD, LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP nor ACCUM_STEPS,
+and the FADA trainer, like the JAX one, prunes no checkpoint and never
+recalibrates; the online distillation step, like the JAX one, reads neither
+GRAD_CLIP nor ACCUM_STEPS).  A knob whose counterpart is not ported yet
+raises NotImplementedError when it is set (MODEL.WEIGHTS,
+MODEL.REMAT_BLOCKS, SOLVER.REMAT, SOLVER.ASYNC_CHECKPOINT,
+DATA_PIPE.NATIVE_DECODE, DIST.*, DEBUG.CHECKIFY, and an Orbax directory as
+DISTILL.TEACHER).
 The other keys belong to parts of the JAX package not yet ported and are kept
 so that their configs load.  The port computes in float32 whatever MODEL.DTYPE
 says, in training as in serving; MODEL.FREEZE_BN does not reach the gald,

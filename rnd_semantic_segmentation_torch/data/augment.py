@@ -24,6 +24,14 @@ the domain's train size when INPUT.INPUT_SCALES_TRAIN is (1, 1) or else
 ``ToArray`` and ``Normalize``.  In test mode: ``Resize`` of the image alone
 to INPUT.INPUT_SIZE_TEST, ``ToArray``, ``Normalize``.
 
+With ``DATA_PIPE.DEVICE_AUG`` a train-mode ``Augmenter`` keeps only the
+host's share (``_device_stub``), and ``data/device_pipe.py`` does the rest
+on the batch's device: ``pra`` crops as below and resizes to
+INPUT.TRAINSIZE squared, uint8 out; ``aspp`` takes ``RandomScale`` and
+``RandomCrop(pad_if_needed)`` only when INPUT.INPUT_SCALES_TRAIN is not
+(1, 1), then ``ToArray``; ``attn``, ``gald`` and ``none`` are the identity.
+Test mode keeps the host's transforms.
+
 ``pra`` in train mode: a rotation by k x 90 degrees (k in 0..3), a flip by
 the albumentations codes 0, 1, -1 or none, ``ColorJitter(0.2, 0.2, 0.2,
 0.1)``, then with probability 1/2 (and only when both sides exceed 220) a
@@ -48,6 +56,7 @@ import numpy as np
 from PIL import Image
 
 from . import transforms as T
+from .device_pipe import device_aug_active
 
 PRA_CROP = 220
 IMAGENET_MEAN = np.asarray((0.485, 0.456, 0.406), np.float32)
@@ -120,6 +129,11 @@ class Augmenter:
 
     def build_transform(self):
         name = self.cfg.AUG.NAME
+        if name not in ("gald", "none", "aspp", "attn", "pra"):
+            raise ValueError(f"AUG.NAME {name!r}: the pipelines are attn, pra, aspp, gald and "
+                             f"none (the JAX package takes any other name as the identity)")
+        if device_aug_active(self.cfg, self.mode):
+            return self._device_stub(name)
         if name in ("gald", "none"):
             return lambda image, label: (image, label)
         if name == "aspp":
@@ -128,10 +142,31 @@ class Augmenter:
             if self.mode == "train":
                 return self.attn_trans
             return lambda image, label: (image, label)
+        return self.pra_trans
+
+    def _device_stub(self, name):
+        """The host's share of a train transform under DATA_PIPE.DEVICE_AUG:
+        the geometry that needs the image before the collate.  Its draws come
+        from ``self.rng`` in the JAX package's order."""
+        cfg, rng = self.cfg, self.rng
         if name == "pra":
-            return self.pra_trans
-        raise ValueError(f"AUG.NAME {name!r}: the pipelines are attn, pra, aspp, gald and "
-                         f"none (the JAX package takes any other name as the identity)")
+            def fn(image, label):
+                image, label = _pra_random_crop(np.asarray(image), np.asarray(label), rng)
+                im, lb = _pra_resize(image, label, cfg.INPUT.TRAINSIZE)
+                # uint8 out: the collate's /255 gives the device [0, 1]
+                return np.asarray(im), np.asarray(lb)
+            return fn
+        if name == "aspp":
+            trans = [T.ToArray()]
+            scales = cfg.INPUT.INPUT_SCALES_TRAIN
+            if not scales[0] == scales[1] == 1:
+                w, h = (cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN if self.is_source
+                        else cfg.INPUT.TARGET_INPUT_SIZE_TRAIN)
+                trans = [T.RandomScale(scale=scales, rng=rng),
+                         T.RandomCrop(size=(h, w), pad_if_needed=True, rng=rng)] + trans
+            return T.Compose(trans)
+        # attn, gald, none: the readers' resize still runs; the rest is the device's
+        return lambda image, label: (image, label)
 
     def attn_trans(self, image, label):
         """One image and label through the train-mode ``attn`` pipeline."""

@@ -29,6 +29,7 @@ import torch
 
 from .. import losses
 from ..ops import resize_bilinear
+from ..utils.seeding import mix_seed
 from .schedules import (
     gradual_warmup_cosine_lr,
     poly_lr,
@@ -78,8 +79,9 @@ def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callabl
 def step_seed(seed: int, step: int) -> int:
     """The seed of one step's drop-connect draws: a pure function of
     ``(seed, step)``, as ``jax.random.fold_in(key, step)`` is in the JAX
-    step, so a resumed run draws what the uninterrupted one drew."""
-    return ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    step, so a resumed run draws what the uninterrupted one drew
+    (``utils.seeding.mix_seed``)."""
+    return mix_seed(seed, step)
 
 
 def make_lr_schedule(spec, cfg, steps_per_epoch: int) -> Callable:

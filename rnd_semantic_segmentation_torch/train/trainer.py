@@ -19,7 +19,18 @@ Loop semantics kept from the reference trainers:
     with ``align_corners=True`` and the label rounded half to even;
     ``iteration`` and the series count batches (the last rate's loss and
     LR), ``state.step`` counts optimizer steps.  The FADA trainer takes one
-    step a batch at any family, as the JAX one does.
+    step a batch at any family, as the JAX one does;
+  * with DATA_PIPE.DEVICE_AUG each batch goes through the device augmenter
+    (data/device_pipe.py) after it reaches the device and before pranet's
+    resize to its rates, its draws seeded by the batch's ``iteration``; the
+    FADA trainer has one for each stream (the target's with its own draws,
+    its train size and no jitter);
+  * with SOLVER.BN_RECAL_BATCHES > 0 the source trainer re-estimates the
+    BatchNorm running statistics after its last epoch over that many
+    train-loader batches (device-augmented when DEVICE_AUG is on; the
+    drop-connect generator seeded from ``SEED + 2``) and writes
+    ``{Prefix}-{SOLVER.EPOCHS}.pth`` again; the FADA trainer never does,
+    as in the JAX package.
 
 One device, no mesh.  The knobs that raise below come with their slices.
 """
@@ -39,10 +50,12 @@ from ..ckpt.checkpoint_io import (
     prune_checkpoints,
     save_checkpoint,
 )
+from ..data.device_pipe import make_device_augmenter
 from ..data.loader import DataLoader, device_prefetch
 from ..models.build import build_adversarial_discriminator, build_segmentor
 from ..ops import resize_bilinear
 from ..utils import MetricLogger, dump_json, resolve_device, setup_logger
+from .bn_recal import recalibrate_batch_stats
 from .fada import DISC_PART, make_disc_optimizer, make_fada_train_step
 from .segmentor import Segmentor
 from .state import TrainState, make_optimizers
@@ -77,9 +90,7 @@ def _refuse_unported(cfg) -> None:
     waiting = {
         "MODEL.WEIGHTS (pretrained backbone import)": bool(cfg.MODEL.WEIGHTS),
         "MODEL.REMAT_BLOCKS (per-block rematerialization)": bool(cfg.MODEL.REMAT_BLOCKS),
-        "SOLVER.BN_RECAL_BATCHES > 0": cfg.SOLVER.BN_RECAL_BATCHES > 0,
         "SOLVER.ASYNC_CHECKPOINT": bool(cfg.SOLVER.ASYNC_CHECKPOINT),
-        "DATA_PIPE.DEVICE_AUG": bool(cfg.DATA_PIPE.DEVICE_AUG),
         "DIST.NUM_DEVICES > 1": cfg.DIST.NUM_DEVICES > 1,
         "DIST.SPATIAL_PARALLEL > 1": cfg.DIST.SPATIAL_PARALLEL > 1,
         "DIST.INITIALIZE": bool(cfg.DIST.INITIALIZE),
@@ -110,6 +121,8 @@ class Trainer:
         self.steps_per_epoch = len(train_loader)
         self.step_fn = make_src_train_step(self.segmentor, cfg, self.steps_per_epoch,
                                            self.state, seed=cfg.SEED + 1)
+        self.device_augs = ((make_device_augmenter(cfg),) if cfg.DATA_PIPE.DEVICE_AUG
+                            else None)
 
     def _build(self, name: str, cfg, local_rank: int, logger) -> None:
         _refuse_unported(cfg)
@@ -152,6 +165,12 @@ class Trainer:
                                      device=self.device):
             yield (batch,)
 
+    def _augment(self, args, iteration: int):
+        """The step's batches through the device augmenters, if any."""
+        if self.device_augs is None:
+            return args
+        return tuple(aug(batch, iteration) for aug, batch in zip(self.device_augs, args))
+
     def _prune_checkpoints(self) -> None:
         """Before each save: prune to keep-1, so that retention lands at
         SOLVER.KEEP_CHECKPOINTS (0 keeps all) after it, but never below one
@@ -189,6 +208,7 @@ class Trainer:
                 except StopIteration:
                     break
                 data_time = time.time() - tic
+                args = self._augment(args, iteration)
                 for rate in self.rates:
                     step_args = args if rate == 1.0 else (resize_batch_to(
                         args[0], rate_side(cfg.INPUT.TRAINSIZE, rate)),)
@@ -210,6 +230,7 @@ class Trainer:
                 save_checkpoint(path, self.ckpt_modules, self.state, epoch)
                 self.logger.info(f"[Saving Snapshot:] {path}")
 
+        self._finish()
         total = time.time() - start
         self.logger.info(
             f"Total training time: {datetime.timedelta(seconds=int(total))} "
@@ -217,6 +238,33 @@ class Trainer:
         dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.chart_name}_chart_params.json"),
                   {title: self.series[key] for title, key in self.CHART.items()})
         return self.state
+
+    def _finish(self) -> None:
+        """After the last epoch: the BatchNorm recalibration, when asked."""
+        if self.cfg.SOLVER.BN_RECAL_BATCHES > 0:
+            self._recalibrate_bn(self.cfg.SOLVER.BN_RECAL_BATCHES)
+
+    def _recalibrate_bn(self, n_batches: int) -> None:
+        """The running statistics re-estimated over ``n_batches`` train-loader
+        batches, device-augmented as in training (the first batches' steps
+        0, 1, ...), then ``{Prefix}-{SOLVER.EPOCHS}.pth`` written again with
+        the optimizers' state, so that eval and resume see them."""
+        cfg = self.cfg
+        batches = []
+        for i, batch in enumerate(device_prefetch(iter(self.train_loader),
+                                                  cfg.DATA_PIPE.PREFETCH, device=self.device)):
+            if self.device_augs is not None:
+                batch = self.device_augs[0](batch, i)
+            batches.append(batch["image"])
+            if len(batches) >= n_batches:
+                break
+        generator = torch.Generator(device=self.device)
+        n = recalibrate_batch_stats(self.segmentor, batches, generator=generator,
+                                    seed=cfg.SEED + 2)
+        self.logger.info(f"[BN-recal] running stats re-estimated over {n} batches")
+        path = checkpoint_name(cfg.OUTPUT_DIR, self.ckpt_prefix, cfg.SOLVER.EPOCHS)
+        save_checkpoint(path, self.ckpt_modules, self.state, cfg.SOLVER.EPOCHS)
+        self.logger.info(f"[BN-recal] re-saved {path}")
 
 
 class FadaTrainer(Trainer):
@@ -253,6 +301,9 @@ class FadaTrainer(Trainer):
         self.step_fn = make_fada_train_step(self.segmentor, self.disc, cfg,
                                             self.steps_per_epoch, self.state,
                                             seed=cfg.SEED + 3)
+        self.device_augs = ((make_device_augmenter(cfg, is_source=True),
+                             make_device_augmenter(cfg, is_source=False))
+                            if cfg.DATA_PIPE.DEVICE_AUG else None)
 
     @property
     def loss_data(self):
@@ -261,6 +312,10 @@ class FadaTrainer(Trainer):
     def _prune_checkpoints(self) -> None:
         """Prunes nothing: the JAX ``FadaTrainer`` keeps every
         ``{Prefix}Fada-N`` checkpoint whatever SOLVER.KEEP_CHECKPOINTS says."""
+
+    def _finish(self) -> None:
+        """Nothing: the JAX ``FadaTrainer`` never recalibrates its BatchNorms,
+        whatever SOLVER.BN_RECAL_BATCHES says."""
 
     def _batches(self, epoch: int):
         streams = []

@@ -170,6 +170,9 @@ def test_train_distill_trains_on_the_pseudo_labels(recipe):
 
 
 def test_online_distillation_raises(recipe):
-    opts = recipe["distill_opts"] + ["DISTILL.ONLINE", "True"]
+    """Online distillation runs since its slice (tests/test_torch_distill_online.py);
+    from an Orbax directory of the JAX package as the teacher it raises."""
+    opts = recipe["distill_opts"] + ["DISTILL.ONLINE", "True", "DISTILL.TEACHER",
+                                     str(recipe["fada"])]
     with pytest.raises(NotImplementedError, match="DISTILL.ONLINE"):
         _run_cli(train_distill, opts)

@@ -585,6 +585,6 @@ def test_tester_evaluates_the_fada_checkpoint(fada_run):
 
 def test_fada_trainer_refuses_the_knobs_that_wait(tmp_path):
     cfg = load_cfg(train_adv.build_parser().parse_args(
-        _cli_opts(tmp_path, "SOLVER.BN_RECAL_BATCHES", "2")))
-    with pytest.raises(NotImplementedError, match="BN_RECAL"):
+        _cli_opts(tmp_path, "SOLVER.ASYNC_CHECKPOINT", "True")))
+    with pytest.raises(NotImplementedError, match="ASYNC_CHECKPOINT"):
         train_adv.make_trainer("deeplab_fada", cfg)

@@ -149,8 +149,6 @@ def test_prune_checkpoints(tmp_path):
 
 
 @pytest.mark.parametrize("opts", [
-    ("SOLVER.BN_RECAL_BATCHES", "2"),
-    ("DATA_PIPE.DEVICE_AUG", "True"),
     ("MODEL.WEIGHTS", "hardnet68.pth"),
     ("SOLVER.ASYNC_CHECKPOINT", "True"),
     ("DIST.NUM_DEVICES", "4"),
@@ -166,6 +164,18 @@ def test_every_knob_that_waits_raises(tmp_path, opts):
     with pytest.raises(NotImplementedError):
         train_src.make_trainer("gald", _cfg(tmp_path, *opts))
     assert not list(tmp_path.glob("*.pth"))
+
+
+@pytest.mark.parametrize("opts", [
+    ("SOLVER.BN_RECAL_BATCHES", "2"),
+    ("DATA_PIPE.DEVICE_AUG", "True"),
+], ids=lambda o: o[0])
+def test_knobs_the_distillation_slice_ported_build_a_trainer(tmp_path, opts):
+    """BN recalibration and device augmentation waited until the online
+    distillation slice; they build a trainer now."""
+    trainer = train_src.make_trainer("gald", _cfg(tmp_path, *opts))
+    assert (trainer.device_augs is not None) == (opts[0] == "DATA_PIPE.DEVICE_AUG")
+    assert trainer.cfg.SOLVER.BN_RECAL_BATCHES == (2 if opts[0].startswith("SOLVER") else 0)
 
 
 @pytest.mark.parametrize("opts", [
