@@ -190,6 +190,36 @@ no result line on any failure.  Phases, each of which raises:
               configs/deeplabv2_r101_adv.yaml with it on gta5_train ->
               cityscapes_train files, 3 steps of 4 + 4, the target at
               1024x512 with no jitter, beside train_fada_files' numbers.
+ 29. train_bf16  MODEL.DTYPE: each family's own config at its default
+              bfloat16 beside the same run pinned to float32, in one process,
+              on the synthetic dataset: deeplabv2_r101_src.yaml and
+              gald_src.yaml 6 at 1280x720, attn_src_kvasir.yaml (B2) 20 at
+              512, 4 steps (the first a warm-up); pranet_src_polyp.yaml 16 at
+              the three rates, 2 batches; ms a step, peak memory, the losses,
+              float32 parameters and every convolution's output in the run's
+              type; the GALD runs launch #1 and #2 twice a step (the bfloat16
+              instances in the bfloat16 run), and one bfloat16 step's
+              gradients through them are held against the plain core at
+              BWD_TOLERANCE[bfloat16] in eval mode (train mode reported);
+ 30. train_fada_bf16  configs/deeplabv2_r101_adv.yaml at bfloat16, 3 steps of
+              4 + 4 as train_fada_deeplab checks them, D on the bfloat16 tap,
+              then the step split with the kernel tables of the generator's
+              and D's parts;
+ 31. distill_online_bf16  online distillation at bfloat16, the image cast
+              before the teacher: configs/gald_tgt_self_distill.yaml, 3 steps
+              of 5 synthetic images at 1024x512 (#1 4 launches a step, #2 2,
+              on bfloat16 q, k, v); attn B2 with MODEL.FUSED_MBCONV from
+              train_attn_files' checkpoint (seeded when that phase did not
+              run), 3 steps of 20 synthetic images at 512 (#3 17 a step on
+              bfloat16 activations, all the teacher's);
+ 32. remat    attn B2, 20 at 512, bfloat16, MODEL.REMAT_BLOCKS off against
+              on (AUG.PROB 0, so that both see the same batches);
+              DeepLabV2-ResNet101, 6 at 1280x720, bfloat16,
+              MODEL.REMAT_BLOCKS with SOLVER.REMAT full against neither; 4
+              steps a run; ms a step, peak memory (which must be lower with
+              rematerialisation), the largest differences in the losses, the
+              last step's gradients and the BatchNorm running statistics.
+Every phase before train_bf16 pins MODEL.DTYPE float32 (``FLOAT32``).
 The online phases cut the datasets to their steps (``_FirstItems``); each
 earlier phase keeps its depth.
 The PraNet phases set INPUT.SOURCE_INPUT_SIZE_TRAIN and
@@ -197,8 +227,9 @@ TARGET_INPUT_SIZE_TRAIN to 352 squared besides the data, the output and the
 run's length: the configs leave them at their defaults, to which the
 readers resize each item after the pra transform (ROADMAP Queue 3).
 Hand kernels lie on the GALD paths (#1 and #2: serving, training, FADA and
-online distillation) and on the attn eval paths (#3: eval, serving, the
-bli_val evals and the online attn teacher); no hand kernel lies on the
+online distillation, in float32 and in bfloat16) and on the attn eval paths
+(#3: eval, serving, the bli_val evals and the online attn teacher, the last
+also in bfloat16); no hand kernel lies on the
 DeepLab, VGG16 or PraNet paths, nor on attn training (source, FADA or the
 online student) nor on the device augmentation: their phases check that
 none of the three launched.
@@ -210,8 +241,8 @@ serve_attn, train_deeplab, eval_deeplab, serve_deeplab, train_attn,
 train_fada_deeplab, train_fada_gald, train_fada_attn, fada_vgg16, data_files,
 train_fada_files, saveres_cityscapes, train_distill_files, train_attn_files,
 train_pranet, eval_pranet, serve_pranet, train_fada_pranet, train_distill_online,
-train_distill_online_gald, train_distill_online_polyp, device_aug; device and
-build always run) and prints no result lines: an aid while
+train_distill_online_gald, train_distill_online_polyp, device_aug, train_bf16,
+train_fada_bf16, distill_online_bf16, remat; device and build always run) and prints no result lines: an aid while
 working on one path.  A phase before data_files that evaluates or serves a
 checkpoint makes a seeded one when the phase that trains it did not run; a
 phase after it that reads another's output (files, a checkpoint,
@@ -254,11 +285,15 @@ from rnd_semantic_segmentation_torch.ops import ccattn, mbconv, native
 from rnd_semantic_segmentation_torch.serve.server import make_server
 from rnd_semantic_segmentation_torch.train.segmentor import Segmentor
 from rnd_semantic_segmentation_torch.utils import load_json, resolve_device
+from rnd_semantic_segmentation_torch.utils.device import compute_dtype
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s; FLOP/s for float32 (no
 # tensor cores at full float32 precision) and for bfloat16 (tensor cores)
+# every phase before the bfloat16 ones trains (and evaluates) in float32,
+# whatever its config's MODEL.DTYPE says, so that its numbers keep their meaning
+FLOAT32 = ("MODEL.DTYPE", "float32")
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # a product on the tensor cores: float32 as three TF32 passes (495 TFLOP/s
@@ -561,10 +596,10 @@ def phase_kernels_bwd() -> dict:
                 _log_passes(ccattn.BWD_PASSES, _pass_us(
                     lambda: ccattn.cc_attention_core_bwd_cuda(q, k, v, g),
                     "cc_attention_bwd_kernel", 3))
-            if shape == TRAIN_CC_SHAPE and dtype == torch.float32:
-                result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound_ms, "bound_by": bound_by}
-    return result
+            if shape == TRAIN_CC_SHAPE:
+                result[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "bound_ms": bound_ms, "bound_by": bound_by}
+    return {**result[torch.float32], "bf16": result[torch.bfloat16]}
 
 
 def cc_sdpa(q, k, v, mask):
@@ -642,10 +677,10 @@ def phase_kernels() -> dict:
                 _log_passes(ccattn.FWD_PASSES, _pass_us(
                     lambda: ccattn.cc_attention_core_cuda(q, k, v),
                     "cc_attention_fwd_kernel", 2))
-            if shape in (MAIN_CC_SHAPE, TRAIN_CC_SHAPE) and dtype == torch.float32:
-                result[shape] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "bound_ms": bound_ms, "bound_by": bound_by,
-                                 "library_ms": library_ms}
+            if shape in (MAIN_CC_SHAPE, TRAIN_CC_SHAPE):
+                result[shape, dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                        "bound_ms": bound_ms, "bound_by": bound_by,
+                                        "library_ms": library_ms}
     return result
 
 
@@ -781,7 +816,7 @@ def phase_kernels_mbconv() -> dict:
     for shape in MBCONV_ODD_SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             _mbconv_compare(shape, 3 * shape[1], dtype)
-    per_shape, main = [], {}
+    per_shape, main, main_bf16 = [], {}, {}
     for (c, h, w, k), count in shapes.items():
         f = 6 * c
         for dtype in (torch.float32, torch.bfloat16):
@@ -828,6 +863,9 @@ def phase_kernels_mbconv() -> dict:
                                                      "tc_bound_by", "unfused_ms")}
             else:
                 per_shape[-1]["bf16"] = entry
+                if shape == MAIN_MBCONV_SHAPE:
+                    main_bf16 = {k2: entry[k2] for k2 in ("max_abs_err", "ms", "plain_ms",
+                                                          "bound_ms", "bound_by")}
                 log(f"[kernel]   bfloat16: kernel {ms * 1e3:.2f} us, bound "
                     f"{bound_ms * 1e3:.2f} us ({bound_by}), tensor-core bound "
                     f"{tc_bound_ms * 1e3:.2f} us ({tc_bound_by}), plain version "
@@ -845,8 +883,8 @@ def phase_kernels_mbconv() -> dict:
         f"{sum(e['bf16']['ms'] * e['blocks'] for e in per_shape):.3f} ms")
     if not main or mbconv.KERNEL_LAUNCHES == before:
         raise AssertionError("the main fused-MBConv shape was not measured")
-    return {**main, "shape": list(MAIN_MBCONV_SHAPE), "per_shape": per_shape,
-            "per_forward_ms": totals}
+    return {**main, "shape": list(MAIN_MBCONV_SHAPE), "bf16": main_bf16,
+            "per_shape": per_shape, "per_forward_ms": totals}
 
 
 def host_ms(fn, reps: int = 3) -> float:
@@ -1016,7 +1054,7 @@ def phase_serve(tmp: str, card: str) -> int:
     args = build_parser().parse_args([
         "--max-batch", str(MAX_BATCH), "MODEL.NAME", "gald_hardnet68",
         "MODEL.NUM_CLASSES", "19", "INPUT.INPUT_SIZE_TEST", f"({SERVE_W}, {SERVE_H})",
-        "AUG.NAME", "gald", "OUTPUT_DIR", tmp, "resume", pth])
+        "AUG.NAME", "gald", *FLOAT32, "OUTPUT_DIR", tmp, "resume", pth])
     cfg = load_cfg(args)
     _seeded_checkpoint("serve", cfg, pth)
     render = load_json(os.path.join(HERE, "renders", "cityscapes.json"))
@@ -1045,7 +1083,7 @@ def _set_fused(tester, enabled: bool) -> None:
 def _attn_opts(tmp: str, pth: str, *more):
     return ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
             "-c", os.path.join(HERE, "renders", "kvasir.json"),
-            "OUTPUT_DIR", tmp, "resume", pth, *more]
+            *FLOAT32, "OUTPUT_DIR", tmp, "resume", pth, *more]
 
 
 def _check_attn_geometry(cfg) -> None:
@@ -1165,9 +1203,9 @@ def phase_serve_attn(tmp: str, card: str) -> int:
 ATTENTION_PARAMS = ("query_conv.weight", "key_conv.weight", "value_conv.weight", "gamma")
 
 
-def _one_step_grads(segmentor, loss_fn, x, label):
+def _one_step_grads(segmentor, loss_fn, x, label, train: bool = True):
     segmentor.zero_grad(set_to_none=True)
-    outputs, _ = segmentor(x, train=True)
+    outputs, _ = segmentor(x, train=train)
     loss = loss_fn(outputs, label)
     loss.backward()
     torch.cuda.synchronize()
@@ -1201,7 +1239,8 @@ def _report_steps(tag: str, trainer, card: str, peak_mib: float, batch: int = 0)
         f"2..{len(times) + 1}; first step "
         f"{trainer.meters.meters['time'].series[0] * 1e3:.0f} ms), "
         f"{batch / step_ms * 1e3:.2f} images/s, data share of a step "
-        f"{sum(waits) / sum(times):.1%}, peak memory {peak_mib:.0f} MiB, float32, TF32 off")
+        f"{sum(waits) / sum(times):.1%}, peak memory {peak_mib:.0f} MiB, "
+        f"{trainer.cfg.MODEL.DTYPE}, TF32 off")
     return step_ms
 
 
@@ -1234,7 +1273,7 @@ def phase_train(tmp: str, card: str):
     opts = ["-cfg", os.path.join(HERE, "configs", "gald_src.yaml"),
             "DATASETS.SOURCE_TRAIN", "synthetic_train",
             "DATASETS.SYNTHETIC_LENGTH", str(TRAIN_BATCH * TRAIN_STEPS),
-            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1", "OUTPUT_DIR", out_dir]
+            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1", *FLOAT32, "OUTPUT_DIR", out_dir]
     cfg = load_cfg(train_src.build_parser().parse_args(opts))
     geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
                 tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN))
@@ -1338,7 +1377,7 @@ def _check_no_kernel(tag: str) -> int:
 def _deeplab_opts(out_dir: str, *more):
     return ["-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_src.yaml"),
             "DATASETS.SOURCE_TRAIN", "synthetic_train", "DATASETS.TEST", "synthetic_val",
-            "OUTPUT_DIR", out_dir, *more]
+            *FLOAT32, "OUTPUT_DIR", out_dir, *more]
 
 
 def _check_deeplab_geometry(cfg) -> None:
@@ -1637,7 +1676,7 @@ def phase_train_attn(tmp: str, card: str):
             "DATASETS.SOURCE_TRAIN", "synthetic_train",
             "DATASETS.SYNTHETIC_LENGTH", str(batch * ATTN_TRAIN_STEPS),
             "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1",
-            "MODEL.FUSED_MBCONV", "True", "OUTPUT_DIR", out_dir]
+            "MODEL.FUSED_MBCONV", "True", *FLOAT32, "OUTPUT_DIR", out_dir]
     cfg = load_cfg(train_src.build_parser().parse_args(opts))
     aug = cfg.AUG
     geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
@@ -1756,7 +1795,7 @@ def _fada_opts(config: str, out_dir: str, *more):
     return ["-cfg", os.path.join(HERE, "configs", config),
             "DATASETS.SOURCE_TRAIN", "synthetic_train",
             "DATASETS.TARGET_TRAIN", "synthetic_shift_train",
-            "SOLVER.EPOCHS", "1", "OUTPUT_DIR", out_dir, *more]
+            "SOLVER.EPOCHS", "1", *FLOAT32, "OUTPUT_DIR", out_dir, *more]
 
 
 def _run_fada(tag: str, tmp: str, card: str, config: str, geometry: tuple, steps: int,
@@ -1774,7 +1813,7 @@ def _run_fada(tag: str, tmp: str, card: str, config: str, geometry: tuple, steps
     out_dir = os.path.join(tmp, tag)
     half = geometry[2] // 2
     opts = (["-cfg", os.path.join(HERE, "configs", config), "DATASETS.DATASET_DIR", data_dir,
-             "SOLVER.EPOCHS", "1", "OUTPUT_DIR", out_dir, *more] if data_dir else
+             "SOLVER.EPOCHS", "1", *FLOAT32, "OUTPUT_DIR", out_dir, *more] if data_dir else
             _fada_opts(config, out_dir, "DATASETS.SYNTHETIC_LENGTH", str(half * steps), *more))
     cfg = load_cfg(train_adv.build_parser().parse_args(opts))
     got = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
@@ -1820,7 +1859,7 @@ def _run_fada(tag: str, tmp: str, card: str, config: str, geometry: tuple, steps
     return trainer
 
 
-def _fada_split(trainer, reps: int = 3, profile: bool = True):
+def _fada_split(trainer, reps: int = 3, profile: bool = True, tag: str = "train_fada_deeplab"):
     """Host-clock ms of the four parts of a deeplab FADA step, each ended by a
     device sync, medians of ``reps`` steps at the run's last LRs: the
     generator's two forwards, loss and backward; the segmentor's update; D's
@@ -1841,7 +1880,7 @@ def _fada_split(trainer, reps: int = 3, profile: bool = True):
         loader.set_epoch(1)
         sample = next(iter(loader))
         batches.append((torch.from_numpy(sample["image"]).to(trainer.device)
-                        .permute(0, 3, 1, 2).contiguous(),
+                        .to(compute_dtype(cfg)).permute(0, 3, 1, 2).contiguous(),
                         torch.from_numpy(sample["label"]).to(trainer.device)))
     (src, label), (tgt, _) = batches
     soft = lambda out: torch.softmax(out.detach() / TEMPERATURE, 1).clamp(max=0.9)
@@ -1883,7 +1922,7 @@ def _fada_split(trainer, reps: int = 3, profile: bool = True):
             parts[key].append((time.perf_counter() - t0) * 1e3)
             peaks[key] = torch.cuda.max_memory_allocated() / 2 ** 20
     for key in ("generator", "discriminator") if profile else ():
-        _kernel_table(f"train_fada_deeplab {key}", calls, key)
+        _kernel_table(f"{tag} {key}", calls, key)
     return {key: float(np.median(v)) for key, v in parts.items()}, flops, peaks
 
 
@@ -2132,7 +2171,7 @@ def phase_saveres_cityscapes(tmp: str, card: str) -> int:
             ["--saveres", "-c", os.path.join(HERE, "renders", "cityscapes.json"),
              "-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_adv.yaml"),
              "DATASETS.DATASET_DIR", root, "DATASETS.TEST", "cityscapes_train",
-             "PSEUDO_DIR", pseudo, "OUTPUT_DIR", out_dir, "resume", pth])
+             "PSEUDO_DIR", pseudo, *FLOAT32, "OUTPUT_DIR", out_dir, "resume", pth])
         return args, load_cfg(args), load_json(args.config_path)
 
     fada = _needs(os.path.join(tmp, "train_fada_files", "AsppFada-1.pth"), "train_fada_files")
@@ -2199,7 +2238,7 @@ def phase_train_distill_files(tmp: str, card: str) -> int:
                                     "cityscapes_train"), "saveres_cityscapes")
     opts = ["-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_tgt_self_distill.yaml"),
             "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1",
-            "OUTPUT_DIR", os.path.join(tmp, "train_distill_files")]
+            *FLOAT32, "OUTPUT_DIR", os.path.join(tmp, "train_distill_files")]
     cfg = load_cfg(train_distill.build_parser().parse_args(opts))
     geometry = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.DATASETS.SOURCE_TRAIN,
                 cfg.SOLVER.BATCH_SIZE, tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN),
@@ -2269,7 +2308,7 @@ def phase_train_attn_files(tmp: str, card: str) -> int:
         return ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
                 "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", str(ATTN_FILE_EPOCHS),
                 "SOLVER.CHECKPOINT_PERIOD", "1", "MODEL.FUSED_MBCONV", "True",
-                "DATA_PIPE.WORKER_PROCESSES", str(workers), "OUTPUT_DIR", out_dir]
+                "DATA_PIPE.WORKER_PROCESSES", str(workers), *FLOAT32, "OUTPUT_DIR", out_dir]
 
     def kind(cfg):
         workers = cfg.DATA_PIPE.WORKER_PROCESSES
@@ -2344,7 +2383,7 @@ def _eval_bli_files(tag: str, tmp: str, root: str, pth: str) -> int:
         ["-c", os.path.join(HERE, "renders", "bli.json"),
          "-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
          "DATASETS.DATASET_DIR", root, "DATASETS.TEST", "bli_val", "MODEL.FUSED_MBCONV",
-         "True", "OUTPUT_DIR", os.path.join(tmp, tag), "resume", pth])
+         "True", *FLOAT32, "OUTPUT_DIR", os.path.join(tmp, tag), "resume", pth])
     cfg = load_cfg(args)
     tester = test_cli.make_tester(cfg, load_json(args.config_path),
                                   logger=_stderr_logger(f"chip_smoke.{tag}"))
@@ -2378,7 +2417,7 @@ def _pranet_opts(config: str, root: str, out_dir: str, *more):
     side = f"({PRANET_SIDE}, {PRANET_SIDE})"
     return ["-cfg", os.path.join(HERE, "configs", config), "DATASETS.DATASET_DIR", root,
             "INPUT.SOURCE_INPUT_SIZE_TRAIN", side, "INPUT.TARGET_INPUT_SIZE_TRAIN", side,
-            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1", "OUTPUT_DIR", out_dir,
+            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "1", *FLOAT32, "OUTPUT_DIR", out_dir,
             *more]
 
 
@@ -2810,7 +2849,7 @@ def phase_train_distill_online(tmp: str, card: str) -> int:
     # it gives one class everywhere at probability 1.000 (0% ignored at 0.9)
     teacher = _needs(os.path.join(tmp, "saveres_cityscapes", "teacher.pth"), "saveres_cityscapes")
     opts = ["-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_tgt_self_distill.yaml"),
-            "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1",
+            "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1", *FLOAT32,
             "OUTPUT_DIR", os.path.join(tmp, "train_distill_online"), "DISTILL.ONLINE", "True",
             "DISTILL.TEACHER", teacher, "DISTILL.CONFIDENCE_THRESHOLD", str(ONLINE_THRESHOLD)]
     trainer = _online_trainer("train_distill_online", opts)
@@ -2853,7 +2892,7 @@ def phase_train_distill_online_gald(tmp: str, card: str):
     out_dir = os.path.join(tmp, "train_distill_online_gald")
     opts = ["-cfg", os.path.join(HERE, "configs", "gald_tgt_self_distill.yaml"),
             "DATASETS.SOURCE_TRAIN", "synthetic_train", "SOLVER.EPOCHS", "1",
-            "OUTPUT_DIR", out_dir, "DISTILL.ONLINE", "True"]
+            *FLOAT32, "OUTPUT_DIR", out_dir, "DISTILL.ONLINE", "True"]
     cfg = load_cfg(train_src.build_parser().parse_args(opts))
     steps = ONLINE_STEPS["gald"]
     pth = os.path.join(tmp, "train", "Gald-1.pth")
@@ -2907,7 +2946,7 @@ def phase_train_distill_online_polyp(tmp: str, card: str) -> int:
     steps = ONLINE_STEPS["attn"]
     opts = ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
             "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1", "MODEL.FUSED_MBCONV", "True",
-            "OUTPUT_DIR", os.path.join(tmp, "train_distill_online_attn"),
+            *FLOAT32, "OUTPUT_DIR", os.path.join(tmp, "train_distill_online_attn"),
             "DISTILL.ONLINE", "True", "DISTILL.TEACHER", _attn_files_checkpoint(tmp)]
     trainer = _online_trainer("train_distill_online_attn", opts, batches=steps)
     rec = _run_online("train_distill_online_attn", trainer, card)
@@ -3012,7 +3051,7 @@ def phase_device_aug(tmp: str, card: str) -> int:
             "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", str(DEVICE_AUG_EPOCHS),
             "SOLVER.CHECKPOINT_PERIOD", "1", "MODEL.FUSED_MBCONV", "True",
             "DATA_PIPE.WORKER_PROCESSES", str(procs), "DATA_PIPE.DEVICE_AUG", "True",
-            "SOLVER.BN_RECAL_BATCHES", "8", "OUTPUT_DIR", out_dir]
+            "SOLVER.BN_RECAL_BATCHES", "8", *FLOAT32, "OUTPUT_DIR", out_dir]
     cfg = load_cfg(train_src.build_parser().parse_args(opts))
     trainer = train_src.make_trainer("attn", cfg, logger=_stderr_logger(
         "chip_smoke.device_aug", logging.INFO))
@@ -3172,6 +3211,330 @@ def phase_device_aug(tmp: str, card: str) -> int:
     return launches
 
 
+# -- bfloat16 training (MODEL.DTYPE) and rematerialisation --------------------------
+
+BF16_STEPS = 4                 # a run: one warm-up step and 3 timed
+BF16_PRANET_BATCHES = 2        # each at the three rates: one warm-up batch, one timed
+BF16_ONLINE_STEPS = 3
+REMAT_STEPS = 4
+# (config, family, MODEL.NAME, NUM_CLASSES, batch, (W, H)): each family's own config
+BF16_CONFIGS = (
+    ("deeplabv2_r101_src.yaml", "deeplab", "deeplab_resnet101", 19, TRAIN_BATCH,
+     (TRAIN_W, TRAIN_H)),
+    ("gald_src.yaml", "gald", "gald_hardnet68", 19, TRAIN_BATCH, (TRAIN_W, TRAIN_H)),
+    ("attn_src_kvasir.yaml", "attn", ATTN_MODEL, 2, 20, (ATTN_SIZE, ATTN_SIZE)),
+    ("pranet_src_polyp.yaml", "pranet", "pranet_res2net50", 2, 16,
+     (PRANET_SIDE, PRANET_SIDE)),
+)
+
+
+def _conv_types(modules):
+    """Records the output type of every convolution of ``modules``; returns
+    the set it fills and a function that removes the hooks."""
+    seen, hooks = set(), []
+    for module in modules:
+        for m in module.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                hooks.append(m.register_forward_hook(
+                    lambda mod, inp, out: seen.add(str(out.dtype)[6:])))
+    return seen, lambda: [h.remove() for h in hooks]
+
+
+def _synthetic_trainer(tag: str, tmp: str, config: str, family: str, steps: int, *more):
+    """The source trainer of ``config`` on the synthetic dataset, ``steps``
+    batches long, from seeded weights; ``more`` overrides the config."""
+    out_dir = os.path.join(tmp, tag)
+    opts = ["-cfg", os.path.join(HERE, "configs", config), "DATASETS.SOURCE_TRAIN",
+            "synthetic_train", "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "5",
+            "OUTPUT_DIR", out_dir, *more]
+    batch = load_cfg(train_src.build_parser().parse_args(opts)).SOLVER.BATCH_SIZE
+    cfg = load_cfg(train_src.build_parser().parse_args(
+        opts + ["DATASETS.SYNTHETIC_LENGTH", str(batch * steps)]))
+    trainer = train_src.make_trainer(family, cfg, logger=_stderr_logger(
+        f"chip_smoke.{tag}", logging.WARNING))
+    randomize_weights_(trainer.segmentor, seed=0)
+    return trainer
+
+
+def _timed_train(tag: str, trainer, card: str) -> dict:
+    """Trains the trainer's epoch with the kernel counts set to 0 just before:
+    ms a step (median after the first), peak memory, the loss series, the
+    types of every convolution's output and of the parameters."""
+    types, unhook = _conv_types(trainer.segmentor.parts.values())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = tuple(getattr(m, n) for m, n in KERNEL_COUNTERS)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    unhook()
+    if not trainer.loss_data or not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"[{tag}] losses {trainer.loss_data}")
+    params = {str(p.dtype)[6:] for p in trainer.segmentor.parameters()}
+    step_ms = _report_steps(tag, trainer, card, peak_mib)
+    log(f"[{tag}] losses {[round(v, 4) for v in trainer.loss_data]}; parameters {params}, "
+        f"convolution outputs {sorted(types)}; launches (cc fwd, cc bwd, mbconv) {counts}")
+    want = trainer.cfg.MODEL.DTYPE
+    if params != {"float32"} or types != {want}:
+        raise AssertionError(f"[{tag}] parameters {params}, convolutions {types}, want "
+                             f"float32 parameters and {want} convolutions")
+    return {"ms": step_ms, "peak_mib": peak_mib, "losses": list(trainer.loss_data),
+            "counts": counts}
+
+
+def _global_rel(grads, refs) -> float:
+    """||grad - ref|| / ||ref|| over all leaves as one vector."""
+    num = sum((grads[n] - r).float().square().sum().item() for n, r in refs.items())
+    return (num / sum(r.float().square().sum().item() for r in refs.values())) ** 0.5
+
+
+def _gald_bf16_grads(trainer) -> float:
+    """One bfloat16 GALD step's gradients through kernels #1 and #2 against
+    the same step with the plain core, all leaves as one vector, in eval
+    mode (BatchNorm on running statistics, where the step is well
+    conditioned) within BWD_TOLERANCE[bfloat16]; the train-mode step's
+    difference is reported beside the kernels' own run-to-run difference:
+    in bfloat16, train-mode BatchNorm from random weights amplifies an ulp
+    of either core's output into a few percent of the gradient.  The
+    losses agree within the tolerance in both modes.  A leaf whose true
+    gradient is 0 (the key convolution's bias: the softmax ignores a
+    constant shift of the energies) is rounding noise, so no leaf is held
+    alone.  Returns the eval-mode difference."""
+    from rnd_semantic_segmentation_torch.train.steps import make_family_loss
+
+    cfg, segmentor = trainer.cfg, trainer.segmentor
+    loader = trainer.train_loader
+    loader.set_epoch(1)
+    sample = next(iter(loader))
+    x = torch.from_numpy(sample["image"]).to(trainer.device).to(torch.bfloat16) \
+        .permute(0, 3, 1, 2).contiguous()
+    label = torch.from_numpy(sample["label"]).to(trainer.device)
+    loss_fn = make_family_loss(trainer.spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    tol = BWD_TOLERANCE[torch.bfloat16]
+    result = {}
+    for train in (False, True):
+        mode = "train" if train else "eval"
+        loss_k, grads_k = _one_step_grads(segmentor, loss_fn, x, label, train)
+        _, grads_k2 = _one_step_grads(segmentor, loss_fn, x, label, train)
+        with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
+            before = ccattn.KERNEL_LAUNCHES + ccattn.BWD_KERNEL_LAUNCHES
+            loss_p, grads_p = _one_step_grads(segmentor, loss_fn, x, label, train)
+            if ccattn.KERNEL_LAUNCHES + ccattn.BWD_KERNEL_LAUNCHES != before:
+                raise AssertionError("the plain-core step launched a kernel")
+        result[mode] = _global_rel(grads_k, grads_p)
+        worst, worst_name = _worst_leaf(grads_k, grads_p)
+        log(f"[train_bf16] gald, one bfloat16 step in {mode} mode, kernels vs plain core: "
+            f"loss {loss_k:.6f} vs {loss_p:.6f}; gradient off by {result[mode]:.3e} of its "
+            f"norm (the kernels twice: {_global_rel(grads_k2, grads_k):.3e}); worst leaf "
+            f"{worst_name} {worst:.3e}")
+        if abs(loss_k - loss_p) > tol * abs(loss_p):
+            raise AssertionError(f"bfloat16 {mode}-mode loss {loss_k} against {loss_p}")
+    if result["eval"] > tol:
+        raise AssertionError(f"bfloat16 eval-mode gradients off by {result['eval']} of their "
+                             f"norm from the plain-core step's (tolerance {tol})")
+    return result["eval"]
+
+
+def phase_train_bf16(tmp: str, card: str) -> dict:
+    """Each family's own config at its default MODEL.DTYPE bfloat16 beside
+    the same run at float32, in one process, on the synthetic dataset at the
+    float32 phases' shapes: deeplab and gald 6 at 1280x720, attn B2 20 at
+    512, 4 steps (one warm-up); pranet 16 at the three rates, 2 batches.
+    The GALD runs launch kernels #1 and #2 twice a step each, in their
+    bfloat16 instances in the bfloat16 run, and one bfloat16 step's
+    gradients through them are held against the plain core
+    (``_gald_bf16_grads``).  Returns the bfloat16 runs' launches of #1 and
+    #2."""
+    launches = [0, 0]
+    for config, family, name, nc, batch, size in BF16_CONFIGS:
+        steps = BF16_PRANET_BATCHES if family == "pranet" else BF16_STEPS
+        more = ("INPUT.SOURCE_INPUT_SIZE_TRAIN", f"({size[0]}, {size[1]})") \
+            if family == "pranet" else ()
+        runs = {}
+        for dtype in ("float32", "bfloat16"):
+            tag = f"train_bf16 {family} {dtype}"
+            pin = FLOAT32 if dtype == "float32" else ()
+            trainer = _synthetic_trainer(f"train_bf16_{family}_{dtype}", tmp, config, family,
+                                         steps, *more, *pin)
+            cfg = trainer.cfg
+            got = (cfg.MODEL.NAME, cfg.MODEL.NUM_CLASSES, cfg.SOLVER.BATCH_SIZE,
+                   tuple(cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN), cfg.MODEL.DTYPE)
+            if got != (name, nc, batch, size, dtype):
+                raise AssertionError(f"configs/{config} gives {got}")
+            runs[dtype] = _timed_train(tag, trainer, card)
+            fwd, bwd, fused = runs[dtype]["counts"]
+            optimizer_steps = trainer.state.step
+            if family == "gald":
+                if (fwd, bwd, fused) != (2 * optimizer_steps, 2 * optimizer_steps, 0):
+                    raise AssertionError(f"[{tag}] launches {runs[dtype]['counts']} over "
+                                         f"{optimizer_steps} steps, want 2 and 2 a step")
+                if dtype == "bfloat16":
+                    launches[0] += fwd
+                    launches[1] += bwd
+                    _gald_bf16_grads(trainer)
+            elif any(runs[dtype]["counts"]):
+                raise AssertionError(f"[{tag}] a hand kernel ran: {runs[dtype]['counts']}")
+            del trainer
+            torch.cuda.empty_cache()
+        f32, bf16 = runs["float32"], runs["bfloat16"]
+        log(f"[train_bf16] {family} on {card}: bfloat16 {bf16['ms']:.1f} ms/step, "
+            f"{bf16['peak_mib']:.0f} MiB peak; float32 {f32['ms']:.1f} ms/step, "
+            f"{f32['peak_mib']:.0f} MiB peak; bfloat16 / float32 time "
+            f"{bf16['ms'] / f32['ms']:.2f}, memory {bf16['peak_mib'] / f32['peak_mib']:.2f}")
+    return tuple(launches)
+
+
+def phase_train_fada_bf16(tmp: str, card: str) -> int:
+    """configs/deeplabv2_r101_adv.yaml at its default MODEL.DTYPE bfloat16:
+    3 steps of 4 + 4, D on the bfloat16 tap; the step split, with the
+    kernel tables of the generator's and D's parts."""
+    trainer = _run_fada("train_fada_bf16", tmp, card, "deeplabv2_r101_adv.yaml",
+                        DEEPLAB_FADA_GEOMETRY, 3, "MODEL.DTYPE", "bfloat16")
+    launches = _check_no_kernel("train_fada_bf16")
+    types, unhook = _conv_types(list(trainer.spec.modules.values()) + [trainer.disc])
+    split, flops, peaks = _fada_split(trainer, tag="train_fada_bf16")
+    unhook()
+    log(f"[train_fada_bf16] on {card}: step split (ms, host clock, medians of 3) "
+        + "; ".join(f"{k} {v:.1f}" for k, v in split.items())
+        + f"; generator {flops['generator'] / 1e12:.2f} TFLOP, discriminator "
+        f"{flops['discriminator'] / 1e12:.2f} TFLOP; convolution outputs {sorted(types)}")
+    if types != {"bfloat16"}:
+        raise AssertionError(f"[train_fada_bf16] convolutions in {types}")
+    return launches
+
+
+def _seeded_or(tag: str, cfg, pth: str, seeded: str) -> str:
+    """``pth`` when an earlier phase wrote it, else a seeded checkpoint
+    written to ``seeded``."""
+    if os.path.exists(pth):
+        return pth
+    _seeded_checkpoint(tag, cfg, seeded)
+    return seeded
+
+
+def phase_distill_online_bf16(tmp: str, card: str):
+    """Online distillation at MODEL.DTYPE bfloat16, the image cast before
+    the teacher: configs/gald_tgt_self_distill.yaml, 3 steps of 5 synthetic
+    images at 1024x512 (#1 4 launches a step, #2 2, both on bfloat16 q, k,
+    v); attn B2 with MODEL.FUSED_MBCONV from train_attn_files' checkpoint
+    (seeded when that phase did not run), 3 steps of 20 synthetic images at
+    512 (#3 17 launches a step, all the teacher's, on bfloat16
+    activations).  Returns the launches (#1, #2, #3)."""
+    from rnd_semantic_segmentation_torch.models import efficientnet
+
+    steps = BF16_ONLINE_STEPS
+    out_dir = os.path.join(tmp, "distill_online_bf16_gald")
+    opts = ["-cfg", os.path.join(HERE, "configs", "gald_tgt_self_distill.yaml"),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train", "SOLVER.EPOCHS", "1",
+            "OUTPUT_DIR", out_dir, "DISTILL.ONLINE", "True"]
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    pth = _seeded_or("distill_online_bf16", cfg, os.path.join(tmp, "train", "Gald-1.pth"),
+                     os.path.join(tmp, "gald_teacher_bf16.pth"))
+    trainer = _online_trainer("distill_online_bf16_gald", opts + [
+        "DATASETS.SYNTHETIC_LENGTH", str(cfg.SOLVER.BATCH_SIZE * steps), "DISTILL.TEACHER", pth])
+    if (trainer.cfg.MODEL.DTYPE, trainer.cfg.SOLVER.BATCH_SIZE,
+            tuple(trainer.cfg.INPUT.SOURCE_INPUT_SIZE_TRAIN)) != ("bfloat16", 5, (1024, 512)):
+        raise AssertionError("configs/gald_tgt_self_distill.yaml: not bfloat16, 5 at 1024x512")
+    seen = []
+    hooks = [seg.parts["decoder"].long_relation.register_forward_hook(
+        lambda m, inp, out: seen.append((str(inp[0].dtype)[6:], str(out.dtype)[6:])))
+        for seg in (trainer.segmentor, trainer.teacher)]
+    rec = _run_online("distill_online_bf16_gald", trainer, card)
+    for h in hooks:
+        h.remove()
+    fwd, bwd, _ = rec["counts"]
+    want = tuple(n * steps for n in ONLINE_GALD_LAUNCHES)
+    log(f"[distill_online_bf16] gald launches over {trainer.state.step} steps: "
+        f"cc_attention_fwd {fwd}, cc_attention_bwd {bwd} (want {want}); criss-cross "
+        f"inputs and outputs {sorted(set(seen))}")
+    if (fwd, bwd) != want or set(seen) != {("bfloat16", "bfloat16")} or rec["counts"][2]:
+        raise AssertionError(f"gald online bf16: launches {rec['counts']}, types {set(seen)}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    out_dir = os.path.join(tmp, "distill_online_bf16_attn")
+    opts = ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train", "SOLVER.EPOCHS", "1",
+            "DATASETS.SYNTHETIC_LENGTH", str(20 * steps), "MODEL.FUSED_MBCONV", "True",
+            "OUTPUT_DIR", out_dir, "DISTILL.ONLINE", "True"]
+    cfg = load_cfg(train_src.build_parser().parse_args(opts))
+    pth = _seeded_or("distill_online_bf16", cfg, os.path.join(
+        tmp, f"train_attn_files_{_loader_procs()}", f"Attn-{ATTN_FILE_EPOCHS}.pth"),
+        os.path.join(tmp, "attn_teacher_bf16.pth"))
+    trainer = _online_trainer("distill_online_bf16_attn", opts + ["DISTILL.TEACHER", pth])
+    fused_types = []
+    real = efficientnet.fused_mbconv_core
+
+    def recording(x, *args):
+        fused_types.append(str(x.dtype)[6:])
+        return real(x, *args)
+
+    with mock.patch.object(efficientnet, "fused_mbconv_core", recording):
+        rec = _run_online("distill_online_bf16_attn", trainer, card)
+    fused = rec["counts"][2]
+    log(f"[distill_online_bf16] attn launches over {trainer.state.step} steps: "
+        f"fused_mbconv_fwd {fused} (want {MBCONV_LAUNCHES_PER_FORWARD} x {steps}) on "
+        f"{sorted(set(fused_types))} activations")
+    if (trainer.state.step != steps or rec["counts"] != (0, 0, MBCONV_LAUNCHES_PER_FORWARD
+                                                          * steps)
+            or set(fused_types) != {"bfloat16"}):
+        raise AssertionError(f"attn online bf16: launches {rec['counts']}, {set(fused_types)}")
+    return fwd, bwd, fused
+
+
+def _remat_pair(tag: str, tmp: str, card: str, config: str, family: str, knobs,
+                same=()) -> None:
+    """The same run from the same weights and batches with ``knobs`` off
+    and on (``same`` in both): ms a step, peak memory, the largest
+    differences in the losses, the last step's gradients and the BatchNorm
+    running statistics.  Fails unless the peak memory is lower with them on."""
+    runs, grads, stats = {}, {}, {}
+    for on in (False, True):
+        more = tuple(same) + (tuple(knobs) if on else ())
+        trainer = _synthetic_trainer(f"{tag}_{'on' if on else 'off'}", tmp, config, family,
+                                     REMAT_STEPS, *more)
+        label = f"{tag} {'on' if on else 'off'}"
+        runs[on] = _timed_train(label, trainer, card)
+        grads[on] = {n: p.grad.detach().float().clone()
+                     for n, p in trainer.segmentor.named_parameters() if p.grad is not None}
+        stats[on] = {n: b.detach().float().clone() for n, b in
+                     trainer.segmentor.named_buffers()
+                     if n.endswith(("running_mean", "running_var", "num_batches_tracked"))}
+        dtype = trainer.cfg.MODEL.DTYPE
+        del trainer
+        torch.cuda.empty_cache()
+    loss_diff = max(abs(a - b) for a, b in zip(runs[False]["losses"], runs[True]["losses"]))
+    grad_diff = max(((grads[True][n] - g).abs().max() / g.abs().max().clamp(min=1e-30)).item()
+                    for n, g in grads[False].items())
+    stat_diff = max([(stats[True][n] - s).abs().max().item() for n, s in stats[False].items()]
+                    or [0.0])
+    off, on = runs[False], runs[True]
+    log(f"[{tag}] on {card}, {dtype}: off {off['ms']:.1f} ms/step, {off['peak_mib']:.0f} MiB "
+        f"peak; on ({' '.join(knobs)}) {on['ms']:.1f} ms/step, {on['peak_mib']:.0f} MiB peak; "
+        f"time x{on['ms'] / off['ms']:.2f}, memory x{on['peak_mib'] / off['peak_mib']:.2f}; "
+        f"largest differences: loss {loss_diff:.3e}, gradient {grad_diff:.3e} of the leaf's "
+        f"largest, BatchNorm buffer {stat_diff:.3e} ({len(stats[False])} buffers)")
+    if not on["peak_mib"] < off["peak_mib"]:
+        raise AssertionError(f"[{tag}] peak memory {on['peak_mib']:.0f} MiB with "
+                             f"rematerialisation, {off['peak_mib']:.0f} without")
+    if any(on["counts"]) or any(off["counts"]):
+        raise AssertionError(f"[{tag}] a hand kernel ran")
+
+
+def phase_remat(tmp: str, card: str) -> None:
+    """attn B2, 20 at 512, bfloat16, MODEL.REMAT_BLOCKS off against on, the
+    host augmentation off (AUG.PROB 0: its draws from the ``random`` module
+    in the loader's threads would give the two runs other batches); then
+    DeepLabV2-ResNet101, 6 at 1280x720, bfloat16, MODEL.REMAT_BLOCKS with
+    SOLVER.REMAT full against neither; 4 steps a run (one warm-up)."""
+    _remat_pair("remat_attn", tmp, card, "attn_src_kvasir.yaml", "attn",
+                ("MODEL.REMAT_BLOCKS", "True"), same=("AUG.PROB", "0.0"))
+    _remat_pair("remat_deeplab", tmp, card, "deeplabv2_r101_src.yaml", "deeplab",
+                ("MODEL.REMAT_BLOCKS", "True", "SOLVER.REMAT", "full"))
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -3240,39 +3603,56 @@ def main(argv=None) -> int:
         online_polyp_launches = phase_train_distill_online_polyp(tmp, card)
         torch.cuda.empty_cache()
         device_aug_launches = phase_device_aug(tmp, card)
+        torch.cuda.empty_cache()
+        bf16_fwd, bf16_bwd = phase_train_bf16(tmp, card)
+        torch.cuda.empty_cache()
+        fada_bf16_launches = phase_train_fada_bf16(tmp, card)
+        torch.cuda.empty_cache()
+        online_bf16_fwd, online_bf16_bwd, online_bf16_fused = phase_distill_online_bf16(tmp, card)
+        torch.cuda.empty_cache()
+        phase_remat(tmp, card)
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
-        "launches": serve_launches + train_fwd_launches + fada_gald_fwd + online_gald_fwd,
+        "launches": (serve_launches + train_fwd_launches + fada_gald_fwd + online_gald_fwd
+                     + bf16_fwd + online_bf16_fwd),
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_fwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
         "launches_pranet": pranet_launches, "launches_distill_online": online_launches,
         "launches_distill_online_gald": online_gald_fwd, "launches_distill_online_polyp": 0,
-        "launches_device_aug": 0,
-        **fwd[MAIN_CC_SHAPE], "library": "torch.nn.functional.scaled_dot_product_attention "
-                                          "over H*W pixels with the criss-cross mask",
+        "launches_device_aug": 0, "launches_train_bf16": bf16_fwd,
+        "launches_fada_bf16": fada_bf16_launches, "launches_distill_online_bf16": online_bf16_fwd,
+        "launches_remat": 0,
+        **fwd[MAIN_CC_SHAPE, torch.float32],
+        "library": "torch.nn.functional.scaled_dot_product_attention over H*W pixels with "
+                   "the criss-cross mask",
         "shape": list(MAIN_CC_SHAPE),
-        "at_train_shape": {**fwd[TRAIN_CC_SHAPE], "shape": list(TRAIN_CC_SHAPE)},
+        "at_train_shape": {**fwd[TRAIN_CC_SHAPE, torch.float32], "shape": list(TRAIN_CC_SHAPE)},
+        "bf16": {**fwd[TRAIN_CC_SHAPE, torch.bfloat16], "shape": list(TRAIN_CC_SHAPE)},
     }, {
         "name": "cc_attention_bwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_bwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
-        "launches": train_bwd_launches + fada_gald_bwd + online_gald_bwd,
+        "launches": (train_bwd_launches + fada_gald_bwd + online_gald_bwd + bf16_bwd
+                     + online_bf16_bwd),
         "launches_train": train_bwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_bwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
         "launches_pranet": pranet_launches, "launches_distill_online": online_launches,
         "launches_distill_online_gald": online_gald_bwd, "launches_distill_online_polyp": 0,
-        "launches_device_aug": 0, **bwd, "library_ms": None,
+        "launches_device_aug": 0, "launches_train_bf16": bf16_bwd,
+        "launches_fada_bf16": fada_bf16_launches, "launches_distill_online_bf16": online_bf16_bwd,
+        "launches_remat": 0, **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/mbconv_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
         "launches": (eval_attn_launches + serve_attn_launches + fada_attn_launches
-                     + bli_launches + online_polyp_launches + device_aug_launches),
+                     + bli_launches + online_polyp_launches + device_aug_launches
+                     + online_bf16_fused),
         "launches_eval_attn": eval_attn_launches,
         "launches_serve_attn": serve_attn_launches,
         "launches_deeplab": deeplab_launches,
@@ -3283,7 +3663,10 @@ def main(argv=None) -> int:
         "launches_pranet": pranet_launches, "launches_distill_online": online_launches,
         "launches_distill_online_gald": 0,
         "launches_distill_online_polyp": online_polyp_launches,
-        "launches_device_aug_eval_bli": device_aug_launches, **mb, "library_ms": None,
+        "launches_device_aug_eval_bli": device_aug_launches, "launches_train_bf16": 0,
+        "launches_fada_bf16": fada_bf16_launches,
+        "launches_distill_online_bf16": online_bf16_fused, "launches_remat": 0,
+        **mb, "library_ms": None,
     }]
     log(f"[done] {time.perf_counter() - t0:.1f} s in all")
     log(card)

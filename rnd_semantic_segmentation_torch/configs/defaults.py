@@ -30,19 +30,22 @@ DISTILL.TEACHER and DISTILL.CONFIDENCE_THRESHOLD (online self-distillation,
 LR_POWER, DECAY_RATE, DECAY_EPOCH, MOMENTUM, WEIGHT_DECAY, BATCH_SIZE,
 LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP, ACCUM_STEPS, CHECKPOINT_PERIOD,
 KEEP_CHECKPOINTS and BN_RECAL_BATCHES (the source trainer's BatchNorm
-recalibration after the last epoch); and for FADA also DATASETS.TARGET_TRAIN
+recalibration after the last epoch), MODEL.DTYPE (the training compute type,
+float32 or bfloat16; another raises), MODEL.REMAT_BLOCKS and SOLVER.REMAT
+(rematerialisation, models/remat.py; every training step); and for FADA also DATASETS.TARGET_TRAIN
 and SOLVER.BASE_LR_D and ADV_WEIGHT (the FADA step, like the JAX one, reads
 neither LR_METHOD, LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP nor ACCUM_STEPS,
 and the FADA trainer, like the JAX one, prunes no checkpoint and never
 recalibrates; the online distillation step, like the JAX one, reads neither
 GRAD_CLIP nor ACCUM_STEPS).  A knob whose counterpart is not ported yet
 raises NotImplementedError when it is set (MODEL.WEIGHTS,
-MODEL.REMAT_BLOCKS, SOLVER.REMAT, SOLVER.ASYNC_CHECKPOINT,
-DATA_PIPE.NATIVE_DECODE, DIST.*, DEBUG.CHECKIFY, and an Orbax directory as
-DISTILL.TEACHER).
+SOLVER.ASYNC_CHECKPOINT, DATA_PIPE.NATIVE_DECODE, DIST.*, DEBUG.CHECKIFY,
+and an Orbax directory as DISTILL.TEACHER).
 The other keys belong to parts of the JAX package not yet ported and are kept
-so that their configs load.  The port computes in float32 whatever MODEL.DTYPE
-says, in training as in serving; MODEL.FREEZE_BN does not reach the gald,
+so that their configs load.  The port trains in MODEL.DTYPE (the image cast
+to it, parameters, gradients and losses float32), as the JAX package does,
+while evaluation and serving compute in float32, which the JAX package's
+tester and server do whatever MODEL.DTYPE says; MODEL.FREEZE_BN does not reach the gald,
 attn and pranet families, here as in the JAX package (both pranet configs
 set it, and their BatchNorms train on batch statistics), and TEST.FLIP_TTA/MULTI_SCALE act on
 the deeplab family only, as there.

@@ -32,9 +32,10 @@ averages wrap-around shifts (``numpy.roll``) over k in {3, 5, 7}; the
 rotation is PIL's counter-clockwise turn with y down, bilinear for the
 image and nearest for the label, with 0 outside the source for both; the
 hue is a rotation in YIQ, not in HSV; the jitter's order is brightness,
-contrast, saturation, hue, each factor drawn per image.  The output image is
-float32 whatever MODEL.DTYPE says, as everywhere in the port; the label
-keeps its type.
+contrast, saturation, hue, each factor drawn per image.  The arithmetic is
+float32; the output image is cast last to ``dtype`` (float32 by default;
+``make_device_augmenter`` passes MODEL.DTYPE, as the JAX augmenter does), and
+the label keeps its type.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.device import compute_dtype
 from ..utils.seeding import mix_seed
 
 TARGET_SEED_OFFSET = 7919      # a FADA target stream's draws (JAX: PRNGKey(SEED + 7919))
@@ -255,7 +257,8 @@ def _normalize(x, mean, std):
         / torch.tensor(std, dtype=torch.float32, device=x.device)
 
 
-def augment_batch_pra(images, labels, draws) -> Dict[str, torch.Tensor]:
+def augment_batch_pra(images, labels, draws,
+                      dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The device half of the pra pipeline on a square batch in [0, 1]:
     rot90, flip (code 3: none), jitter, clip, normalise.  The 220 crop and
     the resize stay on the host (they need the image before the resize)."""
@@ -266,11 +269,12 @@ def augment_batch_pra(images, labels, draws) -> Dict[str, torch.Tensor]:
     x, y = flip_select(x, y, code, code < 3)
     x = color_jitter(x, draws["jitter"])
     x = torch.clamp(x, 0.0, 1.0)
-    return {"image": _normalize(x, IMAGENET_MEAN, IMAGENET_STD).contiguous(),
+    return {"image": _normalize(x, IMAGENET_MEAN, IMAGENET_STD).to(dtype).contiguous(),
             "label": y.contiguous()}
 
 
-def augment_batch_attn(images, labels, draws) -> Dict[str, torch.Tensor]:
+def augment_batch_attn(images, labels, draws,
+                       dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The device half of the attn pipeline on [0, 1] images: each op where
     the outer gate and its own coin both came up, in the order blur, rotate,
     jitter, flip; clipped to [0, 1], not normalised."""
@@ -281,12 +285,13 @@ def augment_batch_attn(images, labels, draws) -> Dict[str, torch.Tensor]:
     xj = color_jitter(x, draws["jitter"])
     x = torch.where((apply & draws["jitter_on"]).view(-1, 1, 1, 1), xj, x)
     x, y = flip_select(x, y, draws["flip_code"], apply & draws["flip"])
-    return {"image": torch.clamp(x, 0.0, 1.0).contiguous(), "label": y.contiguous()}
+    return {"image": torch.clamp(x, 0.0, 1.0).to(dtype).contiguous(), "label": y.contiguous()}
 
 
 def augment_batch(images, labels, draws, size: Optional[Tuple[int, int]] = None,
                   mean: Sequence[float] = IMAGENET_MEAN, std: Sequence[float] = IMAGENET_STD,
-                  to_bgr255: bool = False) -> Dict[str, torch.Tensor]:
+                  to_bgr255: bool = False,
+                  dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
     """The aspp pipeline on [0, 1] images: resize to ``size`` = (H, W),
     horizontal flip, jitter, clip, ``TO_BGR255`` (channels reversed, times
     255), normalise."""
@@ -301,7 +306,7 @@ def augment_batch(images, labels, draws, size: Optional[Tuple[int, int]] = None,
     x = torch.clamp(x, 0.0, 1.0)
     if to_bgr255:
         x = x.flip(-1) * 255.0
-    return {"image": _normalize(x, mean, std).contiguous(), "label": y.contiguous()}
+    return {"image": _normalize(x, mean, std).to(dtype).contiguous(), "label": y.contiguous()}
 
 
 # -- the trainers' hook --------------------------------------------------------------
@@ -318,21 +323,24 @@ def make_device_augmenter(cfg, is_source: bool = True):
     batch's device, its draws from a generator seeded with
     ``mix_seed(DATA_PIPE.SEED (+ 7919 for a FADA target), step)``.  A
     target stream in the aspp pipeline takes the target train size and no
-    jitter (aspp's ColorJitter is the source domain's only)."""
+    jitter (aspp's ColorJitter is the source domain's only).  The image
+    comes out in MODEL.DTYPE."""
     name = cfg.AUG.NAME
     seed = cfg.DATA_PIPE.SEED + (0 if is_source else TARGET_SEED_OFFSET)
+    dtype = compute_dtype(cfg)
     generators: Dict[torch.device, torch.Generator] = {}
 
     if name == "pra":
         def impl(image, label, gen):
-            return augment_batch_pra(image, label, draw_pra(gen, image.shape[0]))
+            return augment_batch_pra(image, label, draw_pra(gen, image.shape[0]), dtype)
     elif name == "attn":
         aug = cfg.AUG
         probs = dict(prob=aug.PROB, blur_prob=aug.BLUR_PROB, rotate_prob=aug.ROTATE_PROB,
                      jitter_prob=aug.JITTER_PROB, flip_prob=aug.FLIP_PROB)
 
         def impl(image, label, gen):
-            return augment_batch_attn(image, label, draw_attn(gen, image.shape[0], **probs))
+            return augment_batch_attn(image, label, draw_attn(gen, image.shape[0], **probs),
+                                      dtype)
     else:  # aspp's pipeline, also for AUG.NAME gald and none
         inp = cfg.INPUT
         w, h = inp.SOURCE_INPUT_SIZE_TRAIN if is_source else inp.TARGET_INPUT_SIZE_TRAIN
@@ -343,7 +351,8 @@ def make_device_augmenter(cfg, is_source: bool = True):
         def impl(image, label, gen):
             draws = draw_aspp(gen, image.shape[0], flip_prob, jitter)
             return augment_batch(image, label, draws, size=(h, w), mean=tuple(inp.PIXEL_MEAN),
-                                 std=tuple(inp.PIXEL_STD), to_bgr255=inp.TO_BGR255)
+                                 std=tuple(inp.PIXEL_STD), to_bgr255=inp.TO_BGR255,
+                                 dtype=dtype)
 
     def fn(batch: Dict, step: int) -> Dict:
         image = batch["image"]

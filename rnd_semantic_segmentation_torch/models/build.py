@@ -13,6 +13,9 @@ of the base LR); every other family raises NotImplementedError until its
 slice is ported.
 ``build_adversarial_discriminator`` gives FADA's ``PixelDiscriminator``
 for a family's discriminator tap.
+``MODEL.REMAT_BLOCKS`` turns on every ``RematBlock`` of the built parts
+(models/remat.py): the residual units of ResNet and Res2Net, HarDNet's
+blocks and EfficientNet's MBConv blocks; VGG16 has none.
 ``MODEL.FUSED_MBCONV`` reaches the attn encoder as a constructor argument: in
 eval mode its eligible MBConv blocks then run the fused kernel of
 ops/mbconv.py.  ``MODEL.FREEZE_BN`` reaches the deeplab ResNet backbones
@@ -35,6 +38,7 @@ from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
 from .layers import FrozenBatchNorm2d
 from .pranet import PraNet
+from .remat import set_remat_blocks
 from .res2net import Res2Net
 from .resnet import _ARCHS, ResNet, output_channels
 
@@ -64,6 +68,13 @@ class SegmentorSpec:
 
 
 def build_segmentor(cfg) -> SegmentorSpec:
+    spec = _build_segmentor(cfg)
+    for module in spec.modules.values():
+        set_remat_blocks(module, bool(cfg.MODEL.REMAT_BLOCKS))
+    return spec
+
+
+def _build_segmentor(cfg) -> SegmentorSpec:
     family, backbone = split_model_name(cfg.MODEL.NAME)
     if family == "deeplab":
         if backbone == "vgg16":

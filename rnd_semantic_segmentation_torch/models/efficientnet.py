@@ -14,7 +14,9 @@ In train mode an identity block applies per-sample drop-connect (stochastic
 depth) at its rate ``drop_connect_rate * idx / len(blocks)``: each sample's
 branch is kept with probability ``keep = 1 - rate`` and then scaled by
 ``1/keep``, drawn from the ``torch.Generator`` the caller passes down through
-``forward``; there is no module-level random state.
+``forward``; there is no module-level random state.  Each ``MBConvBlock``
+is a ``RematBlock`` (``MODEL.REMAT_BLOCKS``, models/remat.py) that draws its
+mask before its rematerialised body.
 
 With ``fused_mbconv`` an eligible block (eval mode, expansion, stride 1) runs
 its expand conv, both BatchNorms, both swishes and the depthwise conv as one
@@ -35,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mbconv import fused_mbconv_applies, fused_mbconv_core
-from .layers import BatchNorm, Conv2d, swish
+from .layers import BatchNorm, Conv2d, cast_param, swish
+from .remat import RematBlock
 
 # (width_coefficient, depth_coefficient, resolution, dropout)
 _PARAMS = {
@@ -98,7 +101,8 @@ def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
 class _SameConv(nn.Conv2d):
     """Conv with TF-style SAME padding worked out from the input's size
     (Conv2dStaticSamePadding semantics).  At stride 2 the padding can be
-    asymmetric, which ``nn.Conv2d(padding=...)`` cannot express."""
+    asymmetric, which ``nn.Conv2d(padding=...)`` cannot express.  It computes
+    in its input's type, its parameters cast (``layers.Conv2d``'s rule)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel: int,
                  stride: int = 1, groups: int = 1, bias: bool = False):
@@ -110,7 +114,8 @@ class _SameConv(nn.Conv2d):
         left, right = same_padding(x.shape[-1], self.kernel_size[1], self.stride[1])
         if top or bottom or left or right:
             x = F.pad(x, (left, right, top, bottom))
-        return F.conv2d(x, self.weight, self.bias, self.stride, 0, 1, self.groups)
+        return F.conv2d(x, cast_param(self.weight, x), cast_param(self.bias, x),
+                        self.stride, 0, 1, self.groups)
 
 
 def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -119,7 +124,7 @@ def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
     return s, bn.bias.float() - bn.running_mean.float() * s
 
 
-class MBConvBlock(nn.Module):
+class MBConvBlock(RematBlock):
     def __init__(self, in_filters: int, out_filters: int, kernel: int, stride: int,
                  expand_ratio: int, se_ratio: float, drop_connect_rate: float = 0.0,
                  fused_mbconv: bool = False):
@@ -186,7 +191,23 @@ class MBConvBlock(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """``generator`` feeds drop-connect in train mode; a block that drops
-        (train mode, rate > 0, identity) raises without one."""
+        (train mode, rate > 0, identity) raises without one.  The mask is
+        drawn here, before ``body``, which ``MODEL.REMAT_BLOCKS`` runs again
+        in the backward: the recompute takes the same mask."""
+        mask = None
+        if (self.training and self.drop_connect_rate > 0 and self.stride == 1
+                and self.in_filters == self.out_filters):
+            if generator is None:
+                raise ValueError("drop-connect in train mode draws from an explicit "
+                                 "torch.Generator; pass generator=")
+            keep = 1.0 - self.drop_connect_rate
+            mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
+                              device=x.device) < keep
+        return super().forward(x, mask)
+
+    def body(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """The block with drop-connect's ``mask`` ([B,1,1,1] bool, or None):
+        applied in the activation's type, then divided by ``keep``."""
         inputs = x
         x = self.segment_fused(x) if self.takes_fused_path(x) else self.segment_unfused(x)
         if self.se_ratio > 0:
@@ -195,14 +216,8 @@ class MBConvBlock(nn.Module):
             x = torch.sigmoid(s) * x
         x = self._bn2(self._project_conv(x))
         if self.stride == 1 and self.in_filters == self.out_filters:
-            if self.training and self.drop_connect_rate > 0:
-                if generator is None:
-                    raise ValueError("drop-connect in train mode draws from an explicit "
-                                     "torch.Generator; pass generator=")
-                keep = 1.0 - self.drop_connect_rate
-                mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                                  device=x.device) < keep
-                x = x * mask.to(x.dtype) / keep
+            if mask is not None:
+                x = x * mask.to(x.dtype) / (1.0 - self.drop_connect_rate)
             x = x + inputs
         return x
 

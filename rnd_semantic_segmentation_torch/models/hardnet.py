@@ -4,6 +4,7 @@
 reference's ``state_dict`` keys (``base.4.layers.3.conv.weight``).  The
 forward returns the four taps at base indices 4, 9, 12 and 15 that the GCPA
 decoder reads: 128 channels at /4, 320 at /8, 640 at /16, 1024 at /32.
+Each ``HarDBlock`` is a ``RematBlock`` (``MODEL.REMAT_BLOCKS``, models/remat.py).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 
 from ..ops import max_pool
 from .layers import BatchNorm, Conv2d, relu6
+from .remat import RematBlock
 
 
 def _get_link(layer: int, base_ch: int, growth_rate: int, grmul: float):
@@ -61,7 +63,7 @@ class ConvLayer(nn.Module):
         return relu6(self.norm(self.conv(x)))
 
 
-class HarDBlock(nn.Module):
+class HarDBlock(RematBlock):
     def __init__(self, in_channels: int, growth_rate: int, grmul: float,
                  n_layers: int):
         super().__init__()
@@ -75,7 +77,7 @@ class HarDBlock(nn.Module):
         self.out_channels = hardblock_out_channels(in_channels, growth_rate,
                                                    grmul, n_layers)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def body(self, x: torch.Tensor) -> torch.Tensor:
         layers_ = [x]
         for link, layer in zip(self.links, self.layers):
             tin = [layers_[i] for i in link]

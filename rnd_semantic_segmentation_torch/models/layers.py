@@ -8,9 +8,20 @@ by default with eps 1e-5 and momentum 0.1 (the EfficientNet encoder asks for
 ``FrozenBatchNorm2d`` is the reference's buffers-only norm of the DeepLab
 backbones, and ``make_norm`` picks one of the two by ``MODEL.FREEZE_BN``.
 ``relu``, ``relu6``, ``leaky_relu`` and ``swish`` are the plain functions.
+
+The precision rule is the JAX package's: a layer computes in the type of its
+input (MODEL.DTYPE on the training paths: float32 or bfloat16).  Parameters
+and buffers stay float32 and are cast to that type where they are used: the
+convolutions cast weight and bias in ``forward``; ``nn.BatchNorm2d`` keeps
+its statistics in float32 and returns the input's type; FrozenBN folds its
+buffers in float32 and applies them in the input's type.  No autocast: its
+op lists would promote a bfloat16 activation that meets a float32 parameter
+in an elementwise op, where the JAX package keeps the activation's type.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -18,8 +29,26 @@ from torch import nn
 
 from ..ops.mbconv import swish  # noqa: F401  (x * sigmoid(x), shared with the kernel's plain version)
 
-Conv2d = nn.Conv2d
-ConvTranspose2d = nn.ConvTranspose2d
+def cast_param(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
+    """``p`` in ``x``'s type (itself when they agree), ``None`` kept."""
+    return None if p is None else p.to(x.dtype)
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in its input's type, its parameters cast."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, cast_param(self.weight, x), cast_param(self.bias, x))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in its input's type, its parameters
+    cast; the output size is the layer's own (no ``output_size``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x, cast_param(self.weight, x), cast_param(self.bias, x),
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
 
 
 def BatchNorm(num_features: int, eps: float = 1e-5,
@@ -47,7 +76,7 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight * torch.rsqrt(self.running_var)
         shift = self.bias - self.running_mean * scale
-        return x * scale.view(1, -1, 1, 1) + shift.view(1, -1, 1, 1)
+        return x * cast_param(scale, x).view(1, -1, 1, 1) + cast_param(shift, x).view(1, -1, 1, 1)
 
 
 def make_norm(kind: str):

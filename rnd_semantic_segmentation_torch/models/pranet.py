@@ -14,7 +14,8 @@
 
 The forward returns the four 1-channel lateral maps at the input size (the
 aggregation map x8, then the branches' maps x32, x16 and x8), resized to the
-explicit size ``floor(dim * s)`` with ``align_corners=False``, and with
+explicit size ``floor(dim * s)`` with ``align_corners=False`` in float32
+(the maps are float32 whatever the activations' type), and with
 ``with_tap`` also the layer4 features, FADA's discriminator tap.
 
 ``backbone`` is ``res2net50`` (Res2Net50-v1b) or a torchvision ResNet of
@@ -133,7 +134,9 @@ class PraNet(nn.Module):
 
     def _reverse_attention(self, crop: torch.Tensor, x: torch.Tensor, convs) -> torch.Tensor:
         """``crop + branch((1 - sigmoid(crop)) * x)``: ReLU after every
-        convolution of the branch but the first and the last."""
+        convolution of the branch but the first and the last.  The crop, a
+        float32 resize, is cast to ``x``'s type first, as in the JAX package."""
+        crop = crop.to(x.dtype)
         h = convs[0]((1.0 - torch.sigmoid(crop)) * x)
         for conv in convs[1:-1]:
             h = relu(conv(h))

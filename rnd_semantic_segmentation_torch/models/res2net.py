@@ -10,7 +10,8 @@ convolution, BN and ReLU, added to the previous group's result first in a
 ``normal`` block; the last passes unchanged (``normal``) or through a 3x3
 average pool of the block's stride (``stage``, the first block of a stage).
 The shortcut of a stage's first block is an average pool of the stride
-(``ceil_mode=True``, padding not counted), a 1x1 convolution and BN.
+(``ceil_mode=True``, padding not counted), a 1x1 convolution and BN.  Each
+block is a ``RematBlock`` (``MODEL.REMAT_BLOCKS``, models/remat.py).
 
 Attribute names give the reference's ``state_dict`` keys (``conv1.0``,
 ``conv1.1``, ``conv1.3``, ``conv1.4``, ``conv1.6``, ``bn1``,
@@ -31,9 +32,10 @@ from torch import nn
 
 from ..ops import avg_pool, max_pool
 from .layers import BatchNorm, Conv2d, relu
+from .remat import RematBlock
 
 
-class Bottle2neck(nn.Module):
+class Bottle2neck(RematBlock):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1,
@@ -55,7 +57,7 @@ class Bottle2neck(nn.Module):
             Conv2d(inplanes, planes * 4, 1, bias=False),
             BatchNorm(planes * 4)) if has_downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def body(self, x: torch.Tensor) -> torch.Tensor:
         out = relu(self.bn1(self.conv1(x)))
         spx = torch.split(out, self.width, dim=1)
         outs, sp = [], None

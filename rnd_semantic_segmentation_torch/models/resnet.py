@@ -12,6 +12,7 @@ reference:
   * the downsample branch exists only on block 0, when the stride is not 1
     or the channel count changes, as ``downsample.0`` (conv) and
     ``downsample.1`` (norm).
+Each residual unit is a ``RematBlock`` (``MODEL.REMAT_BLOCKS``, models/remat.py).
 Attribute names give the reference's ``state_dict`` keys
 (``layer3.0.conv2.weight``, ``layer1.0.downsample.1.running_mean``).
 """
@@ -25,9 +26,10 @@ from torch import nn
 
 from ..ops import max_pool
 from .layers import Conv2d, make_norm, relu
+from .remat import RematBlock
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(RematBlock):
     expansion = 1
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
@@ -43,14 +45,14 @@ class BasicBlock(nn.Module):
         self.downsample = (nn.Sequential(Conv2d(inplanes, planes, 1, stride, bias=False),
                                          norm(planes)) if has_downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def body(self, x: torch.Tensor) -> torch.Tensor:
         out = relu(self.bn1(self.conv1(x)))
         out = self.bn2(self.conv2(out))
         identity = x if self.downsample is None else self.downsample(x)
         return relu(out + identity)
 
 
-class Bottleneck(nn.Module):
+class Bottleneck(RematBlock):
     expansion = 4
 
     def __init__(self, inplanes: int, planes: int, stride: int = 1, dilation: int = 1,
@@ -69,7 +71,7 @@ class Bottleneck(nn.Module):
         self.downsample = (nn.Sequential(Conv2d(inplanes, planes * 4, 1, stride, bias=False),
                                          norm(planes * 4)) if has_downsample else None)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def body(self, x: torch.Tensor) -> torch.Tensor:
         out = relu(self.bn1(self.conv1(x)))
         out = relu(self.bn2(self.conv2(out)))
         out = self.bn3(self.conv3(out))

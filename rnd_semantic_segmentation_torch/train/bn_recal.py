@@ -33,8 +33,9 @@ def recalibrate_batch_stats(segmentor, batches: Iterable,
     place over ``batches`` ([B,H,W,3] images or ``{"image": ...}`` dicts,
     NHWC as the loader gives them, on the segmentor's device).  Drop-connect
     draws from ``generator``, reseeded with ``seed`` before each forward (the
-    JAX function passes one key to every forward).  Returns the number of
-    batches."""
+    JAX function passes one key to every forward).  The forwards run in the
+    batches' type (MODEL.DTYPE after the device augmentation, float32 from
+    the loader), as the JAX function's do.  Returns the number of batches."""
     images = [(b["image"] if isinstance(b, dict) else b) for b in batches]
     if not images:
         return 0
@@ -42,13 +43,12 @@ def recalibrate_batch_stats(segmentor, batches: Iterable,
     saved = [(m.momentum, m.running_mean.clone(), m.running_var.clone(),
               m.num_batches_tracked.clone()) for m in norms]
     was_training = segmentor.training
-    dtype = next(segmentor.parameters()).dtype
     for m in norms:
         m.reset_running_stats()
         m.momentum = None
     try:
         for image in images:
-            x = image.to(dtype).permute(0, 3, 1, 2).contiguous()
+            x = image.permute(0, 3, 1, 2).contiguous()
             if generator is not None:
                 generator.manual_seed(seed)
             segmentor(x, train=True, generator=generator)

@@ -12,6 +12,11 @@ a pixel whose confidence is below it becomes INPUT.IGNORE_LABEL; only the
 cross-entropy families (deeplab, gald) take one, as only their losses
 ignore a label.
 
+The image is cast to MODEL.DTYPE before the teacher's forward, so the
+teacher computes in it too (on the card the attn teacher's fused MBConv
+kernel then runs in bfloat16); the pseudo-labels come from a float32 softmax
+or sigmoid.  SOLVER.REMAT rematerialises the student's forward and loss.
+
 The student's step is the JAX online step, not the port's source step: no
 gradient clamp (pranet's 0.5 is absent, SOLVER.GRAD_CLIP is not read), no
 SOLVER.ACCUM_STEPS micro-batches, and the LR ``lr_sched(state.step,
@@ -24,8 +29,10 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..models.remat import remat_wrap
 from .segmentor import Segmentor
 from .state import TrainState, apply_updates
+from ..utils.device import compute_dtype
 from .steps import check_step_knobs, make_family_loss, make_lr_schedule, step_seed
 
 THRESHOLDLESS_FAMILIES = ("pranet", "attn", "attnwrap")
@@ -80,17 +87,23 @@ def make_online_distill_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
     teacher.eval().requires_grad_(False)
     device = next(segmentor.parameters()).device
     generator = torch.Generator(device=device)
+    dtype = compute_dtype(cfg)
+
+    def student_loss(x, pseudo):
+        outputs, _ = segmentor(x, label_size=tuple(pseudo.shape[1:3]), train=True,
+                               generator=generator)
+        return loss_fn(outputs, pseudo)
+
+    student_loss = remat_wrap(student_loss, cfg, spec.modules.values(), generator)
 
     def step_fn(batch: Dict[str, torch.Tensor], epoch0) -> Dict[str, float]:
-        x = batch["image"].float().permute(0, 3, 1, 2).contiguous()
+        x = batch["image"].to(dtype).permute(0, 3, 1, 2).contiguous()
         with torch.no_grad():
             pseudo = pseudo_labels(teacher_logits(teacher, x), confidence_threshold, ignore)
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
         generator.manual_seed(step_seed(seed, state.step))
-        outputs, _ = segmentor(x, label_size=tuple(pseudo.shape[1:3]), train=True,
-                               generator=generator)
-        loss = loss_fn(outputs, pseudo)
+        loss = student_loss(x, pseudo)
         loss.backward()
         lr = lr_sched(float(state.step), epoch0)
         for name, opt in state.optimizers.items():

@@ -22,6 +22,12 @@ the map 2 that eval reads, as in the JAX step) or out2, the last (gald).  A
 1-channel ``final`` (pranet) gives ``[1 - sigmoid(final / 1.8),
 sigmoid(final / 1.8)]``, clipped the same way.
 
+Both domains are cast to MODEL.DTYPE, in which the segmentor and D compute
+(D on the taps in that type); the soft labels and the four losses are
+float32.  SOLVER.REMAT rematerialises the generator's loss (both forwards, D
+on the target tap and the two losses) in its backward; D's own step reads
+the taps and soft labels that the first run gave.
+
 LRs: poly per iteration on ``BASE_LR`` and ``BASE_LR_D`` for deeplab, gald
 and pranet, warm-up cosine per epoch on both for attn, each segmentor part at its
 ``lr_mults``.  Like the JAX step it reads neither LR_METHOD, LR_BATCH_REF,
@@ -37,9 +43,11 @@ import torch
 from torch import nn
 
 from .. import losses
+from ..models.remat import remat_wrap
 from .schedules import poly_lr, warmup_cosine_lr
 from .segmentor import Segmentor
 from .state import TrainState, apply_updates, make_optimizer
+from ..utils.device import compute_dtype
 from .steps import check_step_knobs, make_family_loss, step_seed
 
 TEMPERATURE = 1.8
@@ -92,28 +100,39 @@ def make_fada_train_step(segmentor: Segmentor, disc: nn.Module, cfg,
     seg_params = [p for m in spec.modules.values() for p in m.parameters()]
     seed = cfg.SEED if seed is None else seed
     generator = torch.Generator(device=seg_params[0].device)
+    dtype = compute_dtype(cfg)
 
-    def forward(batch):
-        x = batch["image"].float().permute(0, 3, 1, 2).contiguous()
+    def forward(x):
         generator.manual_seed(step_seed(seed, state.step))
         outputs, tap = segmentor(x, label_size=x.shape[-2:], train=True, generator=generator)
-        return outputs, tap, tuple(x.shape[-2:])
+        return outputs, tap
+
+    def gen_loss(src_x, src_label, tgt_x):
+        src_outputs, src_tap = forward(src_x)
+        scaled = src_outputs if raw_outputs else tuple(o / TEMPERATURE for o in src_outputs)
+        loss_seg = loss_fn(scaled, src_label)
+        src_soft = _soft_label(final(src_outputs))
+        tgt_outputs, tgt_tap = forward(tgt_x)
+        tgt_soft = _soft_label(final(tgt_outputs))
+        loss_adv = adv_weight * losses.soft_label_cross_entropy(
+            disc(tgt_tap, tgt_x.shape[-2:]),
+            torch.cat([tgt_soft, torch.zeros_like(tgt_soft)], dim=1))
+        return loss_seg + loss_adv, loss_seg, loss_adv, src_tap, tgt_tap, src_soft, tgt_soft
+
+    gen_loss = remat_wrap(gen_loss, cfg, tuple(spec.modules.values()) + (disc,), generator)
 
     def step_fn(src_batch: Dict[str, torch.Tensor], tgt_batch: Dict[str, torch.Tensor],
                 epoch0) -> Dict[str, float]:
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
-        src_outputs, src_tap, src_size = forward(src_batch)
-        scaled = src_outputs if raw_outputs else tuple(o / TEMPERATURE for o in src_outputs)
-        loss_seg = loss_fn(scaled, src_batch["label"])
-        src_soft = _soft_label(final(src_outputs))
-        tgt_outputs, tgt_tap, tgt_size = forward(tgt_batch)
-        tgt_soft = _soft_label(final(tgt_outputs))
+        src_x, tgt_x = (b["image"].to(dtype).permute(0, 3, 1, 2).contiguous()
+                        for b in (src_batch, tgt_batch))
+        src_size, tgt_size = tuple(src_x.shape[-2:]), tuple(tgt_x.shape[-2:])
+        total, loss_seg, loss_adv, src_tap, tgt_tap, src_soft, tgt_soft = gen_loss(
+            src_x, src_batch["label"], tgt_x)
         zeros = torch.zeros_like(tgt_soft)
-        loss_adv = adv_weight * losses.soft_label_cross_entropy(
-            disc(tgt_tap, tgt_size), torch.cat([tgt_soft, zeros], dim=1))
         # inputs=: D is a constant of the generator's loss, its .grad stays empty
-        (loss_seg + loss_adv).backward(inputs=seg_params)
+        total.backward(inputs=seg_params)
         it = float(state.step)
         lr = lr_at(cfg.SOLVER.BASE_LR, it, epoch0)
         for name in spec.modules:

@@ -16,6 +16,12 @@ Loss wiring per family:
     each gradient element to [-0.5, 0.5] (SOLVER.GRAD_CLIP, when set,
     instead).
 
+Precision (MODEL.DTYPE, float32 or bfloat16): the step casts the image to it
+and the model computes in it (models/layers.py); parameters, their gradients,
+the optimizer's state and every loss stay float32.  SOLVER.REMAT (none, full,
+dots) rematerialises each micro-batch's forward and loss in the backward
+(models/remat.py ``remat_wrap``).
+
 LR schedules follow the reference trainers: poly per iteration for deeplab and
 gald, per-epoch warm-up and cosine for pranet and attn whatever
 SOLVER.LR_METHOD says.  Head parts get their 10x through ``spec.lr_mults``.
@@ -28,7 +34,9 @@ from typing import Callable, Dict, Optional
 import torch
 
 from .. import losses
+from ..models.remat import remat_mode, remat_wrap
 from ..ops import resize_bilinear
+from ..utils.device import compute_dtype
 from ..utils.seeding import mix_seed
 from .schedules import (
     gradual_warmup_cosine_lr,
@@ -116,11 +124,11 @@ def make_lr_schedule(spec, cfg, steps_per_epoch: int) -> Callable:
 
 
 def check_step_knobs(cfg) -> None:
-    """The step knobs of the JAX package that the port does not take yet raise."""
-    if str(cfg.SOLVER.REMAT).lower() not in ("none", "", "0", "false"):
-        raise NotImplementedError(
-            f"SOLVER.REMAT {cfg.SOLVER.REMAT!r}: activation checkpointing is not "
-            f"ported yet; use 'none'")
+    """MODEL.DTYPE and SOLVER.REMAT must be values the port takes
+    (``compute_dtype``, ``remat_mode``); the step knobs of the JAX package that
+    the port does not take yet raise."""
+    compute_dtype(cfg)
+    remat_mode(cfg)
     if cfg.DEBUG.CHECKIFY:
         raise NotImplementedError("DEBUG.CHECKIFY has no counterpart in the port yet; "
                                   "DEBUG.NANS turns on autograd's anomaly detection")
@@ -133,8 +141,8 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
     ``state.step`` in place.
 
     batch: ``{"image": [B,H,W,3] float, "label": [B,H,W] int}`` tensors on the
-    segmentor's device, in the loader's NHWC layout.  The compute type is
-    float32 whatever MODEL.DTYPE says.
+    segmentor's device, in the loader's NHWC layout.  The image is cast to
+    MODEL.DTYPE, in which the model computes; the loss is float32.
 
     The step owns a ``torch.Generator`` on the segmentor's device, which the
     attn families' drop-connect draws from: it is seeded with
@@ -150,9 +158,16 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
     seed = cfg.SEED if seed is None else seed
     device = next(segmentor.parameters()).device
     generator = torch.Generator(device=device)
+    dtype = compute_dtype(cfg)
+
+    def micro_loss(xs, ys):
+        outputs, _ = segmentor(xs, label_size=ys.shape[1:3], train=True, generator=generator)
+        return loss_fn(outputs, ys) / accum
+
+    micro_loss = remat_wrap(micro_loss, cfg, spec.modules.values(), generator)
 
     def step_fn(batch: Dict[str, torch.Tensor], epoch0) -> Dict[str, float]:
-        x = batch["image"].float().permute(0, 3, 1, 2).contiguous()
+        x = batch["image"].to(dtype).permute(0, 3, 1, 2).contiguous()
         label = batch["label"]
         for opt in state.optimizers.values():
             opt.zero_grad(set_to_none=True)
@@ -162,10 +177,7 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         generator.manual_seed(step_seed(seed, state.step))
         for i in range(accum):
-            xs, ys = x[i * b:(i + 1) * b], label[i * b:(i + 1) * b]
-            outputs, _ = segmentor(xs, label_size=ys.shape[1:3], train=True,
-                                   generator=generator)
-            loss = loss_fn(outputs, ys) / accum
+            loss = micro_loss(x[i * b:(i + 1) * b], label[i * b:(i + 1) * b])
             loss.backward()
             total += loss.detach()
         lr = lr_sched(float(state.step), epoch0)

@@ -89,7 +89,6 @@ def _refuse_unported(cfg) -> None:
     none is silently ignored."""
     waiting = {
         "MODEL.WEIGHTS (pretrained backbone import)": bool(cfg.MODEL.WEIGHTS),
-        "MODEL.REMAT_BLOCKS (per-block rematerialization)": bool(cfg.MODEL.REMAT_BLOCKS),
         "SOLVER.ASYNC_CHECKPOINT": bool(cfg.SOLVER.ASYNC_CHECKPOINT),
         "DIST.NUM_DEVICES > 1": cfg.DIST.NUM_DEVICES > 1,
         "DIST.SPATIAL_PARALLEL > 1": cfg.DIST.SPATIAL_PARALLEL > 1,

@@ -44,7 +44,7 @@ def _cfg(*opts):
     cfg = get_default_cfg()
     cfg.merge_from_list(["MODEL.NAME", "attn_efficientnet-b0", "MODEL.NUM_CLASSES", str(NC),
                          "MODEL.DEVICE", "cpu", "SOLVER.BASE_LR", "1e-3",
-                         "SOLVER.WEIGHT_DECAY", str(WD), *opts])
+                         "SOLVER.WEIGHT_DECAY", str(WD), "MODEL.DTYPE", "float32", *opts])
     return cfg
 
 

@@ -26,7 +26,7 @@ def _cfg(*opts):
     cfg = get_default_cfg()
     cfg.merge_from_list(["MODEL.NAME", "deeplab_resnet18", "MODEL.NUM_CLASSES", str(NC),
                          "MODEL.FREEZE_BN", "True", "MODEL.DEVICE", "cpu",
-                         "SOLVER.BASE_LR", "1e-3", *opts])
+                         "SOLVER.BASE_LR", "1e-3", "MODEL.DTYPE", "float32", *opts])
     return cfg
 
 

@@ -243,7 +243,8 @@ def test_make_device_augmenter_dispatches_on_aug_name():
     batch = _torch_batch(16, 16)
     pra = dp.make_device_augmenter(_cfg("AUG.NAME", "pra"))(batch, 3)
     gen = torch.Generator().manual_seed(mix_seed(0, 3))
-    ref = dp.augment_batch_pra(batch["image"], batch["label"], dp.draw_pra(gen, B))
+    ref = dp.augment_batch_pra(batch["image"], batch["label"], dp.draw_pra(gen, B),
+                               torch.bfloat16)
     assert torch.equal(pra["image"], ref["image"]) and pra["image"].min() < -1
     attn = dp.make_device_augmenter(_cfg("AUG.NAME", "attn", "AUG.PROB", "1.0"))(batch, 3)
     assert 0 <= attn["image"].min() and attn["image"].max() <= 1
@@ -253,15 +254,16 @@ def test_make_device_augmenter_dispatches_on_aug_name():
                                             "(24, 8)"))(batch, 3)
         assert out["image"].shape == (B, 8, 24, 3) and out["label"].shape == (B, 8, 24)
     for out in (pra, attn, out):
-        # float32 whatever MODEL.DTYPE says; the label's type and the names kept
-        assert out["image"].dtype == torch.float32 and out["label"].dtype == torch.int32
+        # the image in MODEL.DTYPE; the label's type and the names kept
+        assert out["image"].dtype == torch.bfloat16 and out["label"].dtype == torch.int32
         assert out["name"] == batch["name"]
 
 
 def test_a_fada_target_takes_its_size_and_no_jitter():
+    # float32 out, so that the normalisation inverts to float32 rounding
     cfg = _cfg("AUG.NAME", "aspp", "INPUT.SOURCE_INPUT_SIZE_TRAIN", "(20, 12)",
                "INPUT.TARGET_INPUT_SIZE_TRAIN", "(16, 16)", "INPUT.BRIGHTNESS", "0.9",
-               "INPUT.CONTRAST", "0.9")
+               "INPUT.CONTRAST", "0.9", "MODEL.DTYPE", "float32")
     batch = _torch_batch(16, 16)
     tgt = dp.make_device_augmenter(cfg, is_source=False)(batch, 0)
     mean, std = torch.tensor(cfg.INPUT.PIXEL_MEAN), torch.tensor(cfg.INPUT.PIXEL_STD)
@@ -271,7 +273,8 @@ def test_a_fada_target_takes_its_size_and_no_jitter():
     assert src["image"].shape == (B, 12, 20, 3)
     src_same = dp.make_device_augmenter(
         _cfg("AUG.NAME", "aspp", "INPUT.SOURCE_INPUT_SIZE_TRAIN", "(16, 16)",
-             "INPUT.BRIGHTNESS", "0.9", "INPUT.CONTRAST", "0.9"), is_source=True)(batch, 0)
+             "INPUT.BRIGHTNESS", "0.9", "INPUT.CONTRAST", "0.9", "MODEL.DTYPE", "float32"),
+        is_source=True)(batch, 0)
     assert (src_same["image"] * std + mean - batch["image"]).abs().max() > 0.05
 
 

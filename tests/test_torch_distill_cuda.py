@@ -100,7 +100,8 @@ def test_the_augmenter_draws_on_the_batch_device():
     aug = dp.make_device_augmenter(cfg)
     a = aug({"image": x.to(device), "label": y.to(device)}, 4)
     b = aug({"image": x.to(device), "label": y.to(device)}, 4)
-    assert a["image"].device.type == "cuda" and a["image"].dtype == torch.float32
+    # the image in MODEL.DTYPE (bfloat16 by default)
+    assert a["image"].device.type == "cuda" and a["image"].dtype == torch.bfloat16
     assert torch.equal(a["image"], b["image"])
 
 

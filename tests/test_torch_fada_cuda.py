@@ -48,7 +48,8 @@ def _cfg(name, *opts):
     cfg = get_default_cfg()
     cfg.merge_from_list(["MODEL.NAME", name, "MODEL.NUM_CLASSES", str(NC),
                          "MODEL.FREEZE_BN", "True", "MODEL.DEVICE", "cpu",
-                         "SOLVER.BASE_LR", "1e-3", "SOLVER.BASE_LR_D", "1e-4", *opts])
+                         "SOLVER.BASE_LR", "1e-3", "SOLVER.BASE_LR_D", "1e-4",
+                         "MODEL.DTYPE", "float32", *opts])
     return cfg
 
 

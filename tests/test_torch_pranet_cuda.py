@@ -34,7 +34,8 @@ NC = 2
 def _cfg(name, *opts):
     cfg = get_default_cfg()
     cfg.merge_from_list(["MODEL.NAME", name, "MODEL.NUM_CLASSES", str(NC),
-                         "MODEL.DEVICE", "cpu", "SOLVER.BASE_LR", "1e-4", *opts])
+                         "MODEL.DEVICE", "cpu", "SOLVER.BASE_LR", "1e-4",
+                         "MODEL.DTYPE", "float32", *opts])
     return cfg
 
 

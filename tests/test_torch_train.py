@@ -505,7 +505,7 @@ def test_catalog_builds_synthetic_and_refuses_the_rest():
 
 def test_unported_step_knobs_and_families_raise():
     seg = _port_segmentor()
-    for opts in (("SOLVER.REMAT", "full"), ("DEBUG.CHECKIFY", "True")):
+    for opts in (("MODEL.DTYPE", "float16"), ("DEBUG.CHECKIFY", "True")):
         cfg = port_cfg(*opts)
         with pytest.raises(NotImplementedError):
             make_src_train_step(seg, cfg, STEPS_PER_EPOCH,

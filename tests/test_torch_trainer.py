@@ -155,8 +155,7 @@ def test_prune_checkpoints(tmp_path):
     ("DIST.SPATIAL_PARALLEL", "2"),
     ("DIST.INITIALIZE", "True"),
     ("DATA_PIPE.NATIVE_DECODE", "True"),
-    ("SOLVER.REMAT", "full"),
-    ("MODEL.REMAT_BLOCKS", "True"),
+    ("MODEL.DTYPE", "float16"),  # the kernels take float32 and bfloat16 only
     ("DEBUG.CHECKIFY", "True"),
     ("MODEL.NAME", "gald_hardnet85"),  # HarDNet85 waits (Queue 1 item 12)
 ], ids=lambda o: o[0])
@@ -176,6 +175,21 @@ def test_knobs_the_distillation_slice_ported_build_a_trainer(tmp_path, opts):
     trainer = train_src.make_trainer("gald", _cfg(tmp_path, *opts))
     assert (trainer.device_augs is not None) == (opts[0] == "DATA_PIPE.DEVICE_AUG")
     assert trainer.cfg.SOLVER.BN_RECAL_BATCHES == (2 if opts[0].startswith("SOLVER") else 0)
+
+
+@pytest.mark.parametrize("opts", [
+    ("SOLVER.REMAT", "full"),
+    ("MODEL.REMAT_BLOCKS", "True"),
+], ids=lambda o: o[0])
+def test_knobs_the_precision_slice_ported_build_a_trainer(tmp_path, opts):
+    """Rematerialisation waited until the precision slice; it builds a
+    trainer now, MODEL.REMAT_BLOCKS with every HarDBlock turned on."""
+    from rnd_semantic_segmentation_torch.models.hardnet import HarDBlock
+
+    trainer = train_src.make_trainer("gald", _cfg(tmp_path, *opts))
+    blocks = [m for m in trainer.segmentor.modules() if isinstance(m, HarDBlock)]
+    assert len(blocks) == 5
+    assert all(b.remat == (opts[0] == "MODEL.REMAT_BLOCKS") for b in blocks)
 
 
 @pytest.mark.parametrize("opts", [
