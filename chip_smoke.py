@@ -219,6 +219,36 @@ no result line on any failure.  Phases, each of which raises:
               steps a run; ms a step, peak memory (which must be lower with
               rematerialisation), the largest differences in the losses, the
               last step's gradients and the BatchNorm running statistics.
+ 33. quant_deeplab  post-training int8 quantization (serve/quant.py) on
+              DeepLabV2-ResNet101 (configs/deeplabv2_r101_src.yaml, seeded):
+              the int8 conv (columns of int8 views, ``torch._int_mm``) bit-equal
+              to float64 of its integers at each shape class (1x1, 3x3,
+              dilated, strided, pooled maps of 1-8 rows), timed beside cuDNN
+              float32; 32 images at 1024x512 through ``Tester.test()`` with
+              TEST.QUANT none, int8 and auto (ms per image, quantized convs,
+              agreement, ``quant_report``, the confusion heat map); the forward
+              of 1 and of 8 in float32 and int8 with peak memory and
+              agreement; 16 requests served under int8 (p50, max; masks
+              against the Tester's int8 forward); 4 images at 2048x1024 in
+              float32 and int8, where auto resolves to float32;
+ 34. quant_gald  GALD served at 1024x512 under int8, 16 requests: kernel #1
+              twice a forward (the calibrating forward and the agreement's two
+              included); agreement with float32; the forward of 8 in both;
+ 35. quant_attn  attn B2 at 512x512 with MODEL.FUSED_MBCONV, 32 images in
+              batches of 8 under int8 through ``Tester.test()``: kernel #3 17
+              times a forward over the 8 forwards (2 calibrating, 2 for the
+              agreement, 4 evaluating); the forward of 8 in both;
+ 36. export   ``serve.export.export_eval`` (``torch.export``) at batch 2:
+              DeepLab-R101 at 1024x512 in float32 and int8, GALD and fused attn
+              B2 in float32, into the run's tmp directory; one fresh process
+              loads the four, whose class ids must equal the Tester's on the
+              same batch; the GALD program holds kernel #1's operator and
+              launches it twice a call, the attn program #3's 17 times, the
+              int8 one ``aten._int_mm``; bytes, export seconds, ms a call;
+ 37. inference_cli  ``cli.inference`` on a 1024x512 PNG (palette PNG equal to
+              the Tester's argmax), ``cli.demo`` with two checkpoint columns
+              and ground truth (grid, PR curves, image events), and
+              ``cli.visualize`` (figures drawn with Pillow).
 Every phase before train_bf16 pins MODEL.DTYPE float32 (``FLOAT32``).
 The online phases cut the datasets to their steps (``_FirstItems``); each
 earlier phase keeps its depth.
@@ -227,9 +257,10 @@ TARGET_INPUT_SIZE_TRAIN to 352 squared besides the data, the output and the
 run's length: the configs leave them at their defaults, to which the
 readers resize each item after the pra transform (ROADMAP Queue 3).
 Hand kernels lie on the GALD paths (#1 and #2: serving, training, FADA and
-online distillation, in float32 and in bfloat16) and on the attn eval paths
-(#3: eval, serving, the bli_val evals and the online attn teacher, the last
-also in bfloat16); no hand kernel lies on the
+online distillation, in float32 and in bfloat16; #1 also in int8 serving and
+the GALD export) and on the attn eval paths (#3: eval, serving, the bli_val
+evals, the online attn teacher, the last also in bfloat16, int8 eval and the
+attn export); no hand kernel lies on the
 DeepLab, VGG16 or PraNet paths, nor on attn training (source, FADA or the
 online student) nor on the device augmentation: their phases check that
 none of the three launched.
@@ -242,7 +273,8 @@ train_fada_deeplab, train_fada_gald, train_fada_attn, fada_vgg16, data_files,
 train_fada_files, saveres_cityscapes, train_distill_files, train_attn_files,
 train_pranet, eval_pranet, serve_pranet, train_fada_pranet, train_distill_online,
 train_distill_online_gald, train_distill_online_polyp, device_aug, train_bf16,
-train_fada_bf16, distill_online_bf16, remat; device and build always run) and prints no result lines: an aid while
+train_fada_bf16, distill_online_bf16, remat, quant_deeplab, quant_gald,
+quant_attn, export, inference_cli; device and build always run) and prints no result lines: an aid while
 working on one path.  A phase before data_files that evaluates or serves a
 checkpoint makes a seeded one when the phase that trains it did not run; a
 phase after it that reads another's output (files, a checkpoint,
@@ -328,6 +360,13 @@ BWD_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 GRAD_TOLERANCE = 5e-3
 N_REQUESTS, N_THREADS, MAX_BATCH = 16, 8, 8
 MIN_MASK_AGREEMENT = 0.999
+# int8 masks served in batches of other sizes against the same images in one
+# batch of 8: cuDNN's float convolutions (the stem, the narrow convs under
+# QUANT_MIN_CHANNELS) sum in another order at another batch size, and where a
+# value lies within that rounding of a .5 quantization boundary the next
+# int8 conv sees a whole quantum more or less (GALD: 0.9949 in one run,
+# DeepLab: 1.0, on an NVIDIA H100 80GB HBM3 at 700 W)
+MIN_QUANT_MASK_AGREEMENT = 0.99
 # the attn paths: Attention-EfficientNet-B2-UNet, 2 classes, 512x512, batch 8
 ATTN_MODEL, ATTN_SIZE, ATTN_BATCH, ATTN_EVAL_IMAGES = "attn_efficientnet-b2", 512, 8, 32
 MBCONV_LAUNCHES_PER_FORWARD = 17
@@ -1038,15 +1077,16 @@ def serve_breakdown(tag: str, inf, bodies, masks, w: int, h: int, batches: int,
     return x
 
 
-def _check_agreement(tag: str, what: str, probs: torch.Tensor, masks) -> None:
+def _check_agreement(tag: str, what: str, probs: torch.Tensor, masks,
+                     minimum: float = MIN_MASK_AGREEMENT) -> None:
     if not torch.isfinite(probs).all():
         raise AssertionError(f"{what}: probabilities are not finite")
     other = probs.argmax(1).to(torch.uint8).cpu().numpy()
     agreement = float((other == np.stack(masks[:MAX_BATCH])).mean())
     log(f"[{tag}] served masks vs {what}: argmax agreement {agreement:.6f} "
-        f"(minimum {MIN_MASK_AGREEMENT})")
-    if agreement < MIN_MASK_AGREEMENT:
-        raise AssertionError(f"argmax agreement {agreement} < {MIN_MASK_AGREEMENT}")
+        f"(minimum {minimum})")
+    if agreement < minimum:
+        raise AssertionError(f"argmax agreement {agreement} < {minimum}")
 
 
 def phase_serve(tmp: str, card: str) -> int:
@@ -3535,6 +3575,471 @@ def phase_remat(tmp: str, card: str) -> None:
                 ("MODEL.REMAT_BLOCKS", "True", "SOLVER.REMAT", "full"))
 
 
+# -- int8 quantization, export and the eval entry points (serve/quant.py) ------------
+
+# the quantized paths: DeepLabV2-ResNet101 evaluated on QUANT_IMAGES synthetic
+# images at 1024x512, then QUANT_LARGE_IMAGES at 2048x1024, where TEST.QUANT
+# auto resolves to float32 (TEST.QUANT_MAX_AREA 1048576 pixels)
+QUANT_IMAGES, QUANT_LARGE_IMAGES = 32, 4
+LARGE_W, LARGE_H = 2048, 1024
+EXPORT_BATCH = 2
+# the int8 conv's shape classes on DeepLab's path, as (name, x [B,Ci,H,W], k
+# [Co,Ci,kh,kw], stride, padding, dilation): layer3's 1x1, layer1's 3x3,
+# layer4's 3x3 at dilation 4, layer2's strided 3x3 and 1x1 convs of pooled
+# maps (one row per image: the product pads them to 32)
+INT8_CONV_CLASSES = ([("1x1", (1, 1024, 64, 128), (256, 1024, 1, 1), 1, 0, 1),
+                      ("3x3", (1, 64, 128, 256), (64, 64, 3, 3), 1, 1, 1),
+                      ("3x3 dilated", (1, 512, 64, 128), (512, 512, 3, 3), 1, 4, 4),
+                      ("3x3 strided", (1, 128, 128, 256), (128, 128, 3, 3), 2, 1, 1)]
+                     + [(f"pooled rows {b}", (b, 1152, 1, 1), (64, 1152, 1, 1), 1, 0, 1)
+                        for b in range(1, 9)])
+
+
+def _int8_conv_classes(device="cuda") -> None:
+    """The int8 conv against ``F.conv2d`` in float64 of the same integers, at
+    each of INT8_CONV_CLASSES: bit-equal (int32 sums of s8 products are exact),
+    with the time of each beside cuDNN's float32 conv of the same shape."""
+    from rnd_semantic_segmentation_torch.serve.quant import int8_conv2d
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, xs, ks, stride, padding, dilation in INT8_CONV_CLASSES:
+        x8 = torch.randint(-127, 128, xs, generator=gen, device=device, dtype=torch.int8)
+        k8 = torch.randint(-127, 128, ks, generator=gen, device=device, dtype=torch.int8)
+        got = int8_conv2d(x8, k8, (stride, stride), (padding, padding), (dilation, dilation))
+        want = torch.nn.functional.conv2d(x8.double(), k8.double(), None, stride, padding,
+                                          dilation)
+        if got.dtype != torch.int32 or not torch.equal(got.double(), want):
+            raise AssertionError(f"int8 conv {name}: not equal to float64 of its integers")
+        xf, kf = x8.float(), k8.float()
+        int8_ms = graph_ms(lambda: int8_conv2d(x8, k8, (stride, stride), (padding, padding),
+                                               (dilation, dilation)), reps=5, replays=5)
+        f32_ms = graph_ms(lambda: torch.nn.functional.conv2d(xf, kf, None, stride, padding,
+                                                             dilation), reps=5, replays=5)
+        log(f"[quant_deeplab] int8 conv {name}: x {list(xs)}, k {list(ks)}, stride {stride}, "
+            f"dilation {dilation}: bit-equal to float64 of its integers; {int8_ms:.3f} ms "
+            f"(columns and torch._int_mm) against cuDNN float32 {f32_ms:.3f} ms")
+
+
+def _quant_forward(tag: str, tester, qctx, batch: int, w: int, h: int) -> dict:
+    """Host-clock ms per image of the head's forward on a batch of ``batch``
+    seeded images, under ``qctx`` and in float32, the peak memory of each, and
+    the argmax agreement between them."""
+    from rnd_semantic_segmentation_torch.serve.quant import quant_scope
+
+    x = torch.rand(batch, 3, h, w, device=tester.device,
+                   generator=torch.Generator(device=tester.device).manual_seed(batch))
+    out = {}
+    for name, ctx in (("float32", None), ("quant", qctx)):
+        with quant_scope(ctx):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            pred = tester._probs_impl(x, (h, w)).argmax(1)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 20
+            ms = host_ms(lambda: tester._probs_impl(x, (h, w)).sum().item())
+        out[name] = (ms / batch, peak, pred)
+    agreement = float((out["float32"][2] == out["quant"][2]).float().mean())
+    mode = qctx.mode if qctx is not None else "none"
+    log(f"[{tag}] forward of {batch} at {w}x{h}: float32 {out['float32'][0]:.2f} ms/image "
+        f"({out['float32'][1]:.0f} MiB peak), {mode} {out['quant'][0]:.2f} ms/image "
+        f"({out['quant'][1]:.0f} MiB peak), x{out['quant'][0] / out['float32'][0]:.2f}; "
+        f"argmax agreement {agreement:.6f}")
+    return {"float_ms": out["float32"][0], "quant_ms": out["quant"][0],
+            "float_peak_mib": out["float32"][1], "quant_peak_mib": out["quant"][1],
+            "agreement": agreement}
+
+
+def _quant_eval(tag: str, tmp: str, cfg_opts, card: str, images: int, w: int, h: int,
+                on_tester=None):
+    """``cli.test``'s Tester on ``images`` synthetic images: the quant context
+    made (calibration and the policy) and timed, then ``test()`` timed;
+    returns the tester, its summary and ms per image of the eval loop.
+    ``on_tester(tester)`` runs before the quant context is made."""
+    args = test_cli.build_parser().parse_args(cfg_opts)
+    cfg = load_cfg(args)
+    tester = test_cli.make_tester(cfg, load_json(args.config_path),
+                                  logger=_stderr_logger(f"chip_smoke.{tag}"))
+    if on_tester is not None:
+        on_tester(tester)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qctx = tester.make_quant_context()
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    summary = tester.test()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    scalars = [v for v in summary.values() if isinstance(v, float)]
+    if not scalars or not all(np.isfinite(scalars)) or tester.confusion.sum() != images * w * h:
+        raise AssertionError(f"[{tag}] summary {summary}")
+    if not os.path.exists(os.path.join(cfg.OUTPUT_DIR, f"{tester.spec.family}_confusion_matrix.png")):
+        raise AssertionError(f"[{tag}] no confusion heat map")
+    quantized = len(qctx.act_scales) - len(qctx.exclude) if qctx is not None else 0
+    log(f"[{tag}] TEST.QUANT {cfg.TEST.QUANT} on {card}: {images} images at {w}x{h}, batch "
+        f"{cfg.TEST.BATCH_SIZE}: quant context {calib_s * 1e3:.0f} ms (calibration and "
+        f"policy), eval loop {wall / images * 1e3:.1f} ms/image (loader included); "
+        f"{quantized} convs quantized; quant_report {tester.quant_report}; micro mIoU "
+        f"{summary['micro_miou']:.4f}")
+    return tester, summary, wall / images * 1e3
+
+
+def _quant_deeplab_opts(out_dir: str, pth: str, images: int, w: int, h: int, *more):
+    return (["-c", os.path.join(HERE, "renders", "cityscapes.json")]
+            + _deeplab_opts(out_dir, "DATASETS.SYNTHETIC_LENGTH", str(images),
+                            "INPUT.INPUT_SIZE_TEST", f"({w}, {h})", "resume", pth, *more))
+
+
+def _quant_deeplab_checkpoint(tmp: str) -> str:
+    pth = os.path.join(tmp, "quant_deeplab", "Aspp-seeded.pth")
+    if not os.path.exists(pth):
+        os.makedirs(os.path.dirname(pth), exist_ok=True)
+        cfg = load_cfg(train_src.build_parser().parse_args(_deeplab_opts(tmp)))
+        _seeded_checkpoint("quant_deeplab", cfg, pth)
+    return pth
+
+
+def phase_quant_deeplab(tmp: str, card: str) -> int:
+    """DeepLabV2-ResNet101 (configs/deeplabv2_r101_src.yaml, seeded) under
+    TEST.QUANT: the int8 conv's shape classes against float64; 32 images at
+    1024x512 in float32, int8 and auto through ``Tester.test()``; the forward
+    of 1 and of 8 in float32 and int8 (ms, peak memory, agreement); 16
+    requests served under int8; then 2048x1024 in float32 and int8, and what
+    auto resolves to there.  No hand kernel lies on this path."""
+    from rnd_semantic_segmentation_torch.serve.quant import quant_scope, resolve_mode
+
+    _int8_conv_classes()
+    pth = _quant_deeplab_checkpoint(tmp)
+    _zero_kernel_counts()
+    results = {}
+    for mode in ("none", "int8", "auto"):
+        tester, summary, ms = _quant_eval(
+            f"quant_deeplab_{mode}", tmp, _quant_deeplab_opts(
+                os.path.join(tmp, f"quant_deeplab_{mode}"), pth, QUANT_IMAGES, SERVE_W,
+                SERVE_H, "TEST.QUANT", mode), card, QUANT_IMAGES, SERVE_W, SERVE_H)
+        _check_deeplab_geometry(tester.cfg)
+        results[mode] = (tester, ms)
+    tester = results["int8"][0]
+    if tester.quant_report["mode"] != "int8" or tester._qctx is None:
+        raise AssertionError(f"explicit int8 did not quantize: {tester.quant_report}")
+    MEASURED["quant_deeplab"] = {"eval_ms": {m: r[1] for m, r in results.items()}}
+    for batch in (1, MAX_BATCH):
+        MEASURED["quant_deeplab"][f"forward_{batch}"] = _quant_forward(
+            "quant_deeplab", tester, tester._qctx, batch, SERVE_W, SERVE_H)
+    del results
+    torch.cuda.empty_cache()
+
+    args = build_parser().parse_args(
+        ["--max-batch", str(MAX_BATCH), "-c", os.path.join(HERE, "renders", "cityscapes.json")]
+        + _deeplab_opts(tmp, "resume", pth, "TEST.QUANT", "int8"))
+    cfg = load_cfg(args)
+    inf, bodies, masks, batches, _, wall = serve_traffic(
+        "quant_deeplab_serve", cfg, args, load_json(args.config_path), SERVE_W, SERVE_H, card,
+        (ccattn, "KERNEL_LAUNCHES"))
+    if inf.quant_state() != "int8":
+        raise AssertionError(f"the server serves {inf.quant_state()}, not int8")
+    with quant_scope(inf._qctx):
+        x = serve_breakdown("quant_deeplab_serve", inf, bodies, masks, SERVE_W, SERVE_H,
+                            batches, wall, card)
+        _check_agreement("quant_deeplab_serve", "the Tester's int8 forward",
+                         inf.tester._probs_impl(x, (SERVE_H, SERVE_W)), masks,
+                         MIN_QUANT_MASK_AGREEMENT)
+    del inf
+    torch.cuda.empty_cache()
+
+    large = {}
+    for mode in ("none", "int8"):
+        tester, _, ms = _quant_eval(
+            f"quant_deeplab_large_{mode}", tmp, _quant_deeplab_opts(
+                os.path.join(tmp, f"quant_deeplab_large_{mode}"), pth, QUANT_LARGE_IMAGES,
+                LARGE_W, LARGE_H, "TEST.QUANT", mode), card, QUANT_LARGE_IMAGES, LARGE_W,
+            LARGE_H)
+        large[mode] = ms
+    large["forward_1"] = _quant_forward("quant_deeplab_large", tester, tester._qctx, 1,
+                                        LARGE_W, LARGE_H)
+    auto = resolve_mode("auto", area=LARGE_W * LARGE_H, max_area=cfg.TEST.QUANT_MAX_AREA,
+                        device=tester.device)
+    log(f"[quant_deeplab] at {LARGE_W}x{LARGE_H} on {card}: float32 {large['none']:.1f} "
+        f"ms/image, int8 {large['int8']:.1f} ms/image (eval loop); TEST.QUANT auto resolves "
+        f"to {auto!r} there (QUANT_MAX_AREA {cfg.TEST.QUANT_MAX_AREA} < "
+        f"{LARGE_W * LARGE_H} pixels)")
+    if auto != "none":
+        raise AssertionError(f"auto at {LARGE_W}x{LARGE_H} resolved to {auto}")
+    MEASURED["quant_deeplab"]["large"] = large
+    return _check_no_kernel("quant_deeplab")
+
+
+def phase_quant_gald(tmp: str, card: str) -> int:
+    """GALD (HarDNet68 + GCPA-CC, 19 classes, seeded) served at 1024x512
+    under TEST.QUANT int8: 16 requests; kernel #1 launches twice a forward,
+    the calibrating forward and the two of the agreement check on the first
+    batch included; masks against the Tester's int8 forward, agreement with
+    float32 printed."""
+    from rnd_semantic_segmentation_torch.serve.quant import quant_scope
+
+    pth = os.path.join(tmp, "quant_gald", "Gald-seeded.pth")
+    os.makedirs(os.path.dirname(pth), exist_ok=True)
+    args = build_parser().parse_args([
+        "--max-batch", str(MAX_BATCH), "MODEL.NAME", "gald_hardnet68",
+        "MODEL.NUM_CLASSES", "19", "INPUT.INPUT_SIZE_TEST", f"({SERVE_W}, {SERVE_H})",
+        "AUG.NAME", "gald", *FLOAT32, "OUTPUT_DIR", tmp, "resume", pth, "TEST.QUANT", "int8"])
+    cfg = load_cfg(args)
+    _seeded_checkpoint("quant_gald", cfg, pth)
+    render = load_json(os.path.join(HERE, "renders", "cityscapes.json"))
+    inf, bodies, masks, batches, launches, wall = serve_traffic(
+        "quant_gald", cfg, args, render, SERVE_W, SERVE_H, card, (ccattn, "KERNEL_LAUNCHES"))
+    forwards = batches + 3  # the served batches; calibration; the agreement's two
+    if inf.quant_state() != "int8" or launches != 2 * forwards:
+        raise AssertionError(f"quant_gald: {inf.quant_state()}, cc_attention_fwd launched "
+                             f"{launches} times; want 2 x {forwards} forwards")
+    log(f"[quant_gald] cc_attention_fwd launches: {launches} = 2 x ({batches} batches + 1 "
+        f"calibrating forward + 2 agreement forwards); "
+        f"{len(inf._qctx.act_scales)} convs quantized")
+    with quant_scope(inf._qctx):
+        x = serve_breakdown("quant_gald", inf, bodies, masks, SERVE_W, SERVE_H, batches, wall,
+                            card)
+        _check_agreement("quant_gald", "the Tester's int8 forward",
+                         inf.tester._probs_impl(x, (SERVE_H, SERVE_W)), masks,
+                         MIN_QUANT_MASK_AGREEMENT)
+    float_pred = inf.tester._probs_impl(x, (SERVE_H, SERVE_W)).argmax(1).cpu().numpy()
+    agreement = float((float_pred == np.stack(masks[:MAX_BATCH])).mean())
+    log(f"[quant_gald] served int8 masks against the float32 forward: argmax agreement "
+        f"{agreement:.6f}")
+    MEASURED["quant_gald"] = _quant_forward("quant_gald", inf.tester, inf._qctx, MAX_BATCH,
+                                            SERVE_W, SERVE_H)
+    return launches
+
+
+def phase_quant_attn(tmp: str, card: str) -> int:
+    """attn B2 (configs/attn_src_kvasir.yaml, seeded) at 512x512 with
+    MODEL.FUSED_MBCONV on, 32 images in batches of 8 under TEST.QUANT int8
+    through ``Tester.test()``: kernel #3 launches 17 times a forward, over
+    the calibrating forwards (2), the agreement's (2) and the eval's (4)."""
+    pth = os.path.join(tmp, "quant_attn", "Attn-seeded.pth")
+    os.makedirs(os.path.dirname(pth), exist_ok=True)
+    opts = _attn_opts(os.path.join(tmp, "quant_attn"), pth, "DATASETS.TEST", "synthetic_val",
+                      "DATASETS.SYNTHETIC_LENGTH", str(ATTN_EVAL_IMAGES),
+                      "TEST.BATCH_SIZE", str(ATTN_BATCH), "MODEL.FUSED_MBCONV", "True",
+                      "TEST.QUANT", "int8")
+    cfg = load_cfg(test_cli.build_parser().parse_args(opts))
+    _check_attn_geometry(cfg)
+    _seeded_checkpoint("quant_attn", cfg, pth)
+    forwards = []
+    mbconv.KERNEL_LAUNCHES = 0
+    tester, _, ms = _quant_eval(
+        "quant_attn", tmp, opts, card, ATTN_EVAL_IMAGES, ATTN_SIZE, ATTN_SIZE,
+        on_tester=lambda t: t.segmentor.register_forward_hook(
+            lambda mod, inp, out: forwards.append(tuple(inp[0].shape))))
+    launches = mbconv.KERNEL_LAUNCHES
+    want = 2 + 2 + ATTN_EVAL_IMAGES // ATTN_BATCH
+    if len(forwards) != want or launches != MBCONV_LAUNCHES_PER_FORWARD * want:
+        raise AssertionError(f"quant_attn: {len(forwards)} forwards (want {want}), "
+                             f"fused_mbconv_fwd launched {launches} times")
+    log(f"[quant_attn] fused_mbconv_fwd launches: {launches} = {MBCONV_LAUNCHES_PER_FORWARD} "
+        f"x {want} forwards (2 calibrating, 2 for the agreement, "
+        f"{ATTN_EVAL_IMAGES // ATTN_BATCH} evaluating); eval loop {ms:.1f} ms/image")
+    MEASURED["quant_attn"] = _quant_forward("quant_attn", tester, tester._qctx, ATTN_BATCH,
+                                            ATTN_SIZE, ATTN_SIZE)
+    MEASURED["quant_attn"]["eval_ms"] = ms
+    return launches
+
+
+# loads every exported program in a fresh process, runs it on the saved
+# batch, and reports class ids, ms of a call, kernel launches a call and the
+# operators in its graph
+_LOAD_EXPORTED = """
+import json, sys, time
+import numpy as np, torch
+from rnd_semantic_segmentation_torch.ops import ccattn, mbconv
+from rnd_semantic_segmentation_torch.serve.export import load_exported
+report = {}
+for name, prefix, images in json.loads(sys.argv[1]):
+    call, meta = load_exported(prefix)
+    x = np.load(images)
+    ids = call(x)
+    ccattn.KERNEL_LAUNCHES = mbconv.KERNEL_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(5):
+        call(x)
+    ms = (time.perf_counter() - t0) / 5 * 1e3
+    graph = str(torch.export.load(prefix + ".pt2").graph)
+    np.save(prefix + "_ids.npy", ids)
+    report[name] = {"ms": ms, "cc_launches": ccattn.KERNEL_LAUNCHES / 5,
+                    "mbconv_launches": mbconv.KERNEL_LAUNCHES / 5,
+                    "int_mm": graph.count("aten._int_mm"),
+                    "cc_op": graph.count("rnd_seg_torch.cc_attention_fwd"),
+                    "mbconv_op": graph.count("rnd_seg_torch.fused_mbconv_fwd")}
+print(json.dumps(report))
+"""
+
+
+def phase_export(tmp: str, card: str) -> dict:
+    """``serve.export.export_eval`` at batch 2: DeepLab-R101 at 1024x512 in
+    float32 and int8, GALD at 1024x512 and attn B2 at 512x512 with
+    MODEL.FUSED_MBCONV, float32; written to the run's tmp directory (each
+    artifact holds its weights), loaded back in one fresh process, whose
+    class ids must equal the Tester's on the same batch; the GALD program
+    holds kernel #1's operator and launches it twice a call, the attn program
+    #3's and launches it 17 times."""
+    from rnd_semantic_segmentation_torch.serve.export import export_eval
+    from rnd_semantic_segmentation_torch.serve.quant import quant_scope
+
+    deeplab = _quant_deeplab_checkpoint(tmp)
+    gald = os.path.join(tmp, "export", "Gald-seeded.pth")
+    attn = os.path.join(tmp, "export", "Attn-seeded.pth")
+    out_dir = os.path.join(tmp, "export")
+    os.makedirs(out_dir, exist_ok=True)
+    jobs = [("deeplab_float32", _quant_deeplab_opts(out_dir, deeplab, 2, SERVE_W, SERVE_H,
+                                                    "TEST.BATCH_SIZE", "2"), SERVE_W, SERVE_H),
+            ("deeplab_int8", _quant_deeplab_opts(out_dir, deeplab, 2, SERVE_W, SERVE_H,
+                                                 "TEST.BATCH_SIZE", "2", "TEST.QUANT", "int8"),
+             SERVE_W, SERVE_H),
+            ("gald_float32", ["-c", os.path.join(HERE, "renders", "cityscapes.json"),
+                              "MODEL.NAME", "gald_hardnet68", "MODEL.NUM_CLASSES", "19",
+                              "INPUT.INPUT_SIZE_TEST", f"({SERVE_W}, {SERVE_H})",
+                              "AUG.NAME", "gald", *FLOAT32, "DATASETS.TEST", "synthetic_val",
+                              "DATASETS.SYNTHETIC_LENGTH", "2", "OUTPUT_DIR", out_dir,
+                              "resume", gald], SERVE_W, SERVE_H),
+            ("attn_float32", _attn_opts(out_dir, attn, "DATASETS.TEST", "synthetic_val",
+                                        "DATASETS.SYNTHETIC_LENGTH", "2",
+                                        "MODEL.FUSED_MBCONV", "True"), ATTN_SIZE, ATTN_SIZE)]
+    programs, want, exported = [], {}, {}
+    for name, opts, w, h in jobs:
+        args = test_cli.build_parser().parse_args(opts)
+        cfg = load_cfg(args)
+        if not os.path.exists(cfg.resume):
+            _seeded_checkpoint("export", cfg, cfg.resume)
+        tester = test_cli.make_tester(cfg, load_json(args.config_path),
+                                      logger=_stderr_logger("chip_smoke.export"))
+        qctx = tester.make_quant_context()
+        prefix = os.path.join(out_dir, name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        meta = export_eval(tester, EXPORT_BATCH, prefix, quant_ctx=qctx)
+        export_s = time.perf_counter() - t0
+        images = np.random.RandomState(5).rand(EXPORT_BATCH, h, w, 3).astype(np.float32)
+        np.save(prefix + "_images.npy", images)
+        x = torch.from_numpy(images).to(tester.device).permute(0, 3, 1, 2).contiguous()
+        with quant_scope(qctx):
+            want[name] = tester._probs_impl(x, (h, w)).argmax(1).cpu().numpy()
+            tester_ms = host_ms(lambda: tester._probs_impl(x, (h, w)).argmax(1).cpu())
+        exported[name] = {"quant": meta["quant"], "bytes": meta["bytes"],
+                          "export_s": export_s, "tester_ms": tester_ms}
+        programs.append((name, prefix, prefix + "_images.npy"))
+        del tester
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _LOAD_EXPORTED, json.dumps(programs)],
+                          capture_output=True, text=True, timeout=600, cwd=HERE)
+    if proc.returncode != 0:
+        raise RuntimeError(f"loading the exported programs failed:\n{proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    load_s = time.perf_counter() - t0
+    for name, prefix, _ in programs:
+        got = np.load(prefix + "_ids.npy")
+        r = {**exported[name], **report[name]}
+        exported[name] = r
+        log(f"[export] {name} on {card}: {r['bytes'] / 1e6:.1f} MB, quant {r['quant']}, "
+            f"exported in {r['export_s']:.1f} s; a call of {EXPORT_BATCH} in a fresh process "
+            f"{r['ms']:.1f} ms (host clock, numpy in and out) against the Tester's "
+            f"{r['tester_ms']:.1f} ms; aten._int_mm x{r['int_mm']}, cc_attention_fwd op "
+            f"x{r['cc_op']} ({r['cc_launches']:g} launches a call), fused_mbconv_fwd op "
+            f"x{r['mbconv_op']} ({r['mbconv_launches']:g} launches a call)")
+        if not np.array_equal(got, want[name]):
+            raise AssertionError(f"[export] {name}: the program's class ids differ from the "
+                                 f"Tester's on {(got != want[name]).mean():.2e} of pixels")
+    if (exported["deeplab_int8"]["int_mm"] == 0 or exported["gald_float32"]["cc_op"] == 0
+            or exported["attn_float32"]["mbconv_op"] == 0
+            or exported["gald_float32"]["cc_launches"] != 2
+            or exported["attn_float32"]["mbconv_launches"] != MBCONV_LAUNCHES_PER_FORWARD):
+        raise AssertionError(f"[export] an operator or its launches are missing: {exported}")
+    log(f"[export] the fresh process took {load_s:.1f} s for the four programs")
+    MEASURED["export"] = exported
+    return exported
+
+
+def phase_inference_cli(tmp: str, card: str) -> int:
+    """``cli.inference`` on a 1024x512 PNG against the seeded DeepLab
+    checkpoint (its palette PNG's indices must equal the Tester's argmax),
+    ``cli.demo`` with two checkpoint columns and ground truth (grid, PR
+    curves, image events) and ``cli.visualize`` over a chart JSON, all drawn
+    with Pillow on the card's machine.  No hand kernel lies on this path."""
+    from PIL import Image
+
+    from rnd_semantic_segmentation_torch.cli import demo, inference, visualize
+
+    pth = _quant_deeplab_checkpoint(tmp)
+    out_dir = os.path.join(tmp, "inference_cli")
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.RandomState(6)
+    image = os.path.join(out_dir, "image.png")
+    Image.fromarray((rng.rand(SERVE_H, SERVE_W, 3) * 255).astype(np.uint8)).save(image)
+    render = os.path.join(HERE, "renders", "cityscapes.json")
+    opts = _deeplab_opts(out_dir, "resume", pth)
+    _zero_kernel_counts()
+    t0 = time.perf_counter()
+    inference.cli(["-i", image, "-o", os.path.join(out_dir, "pred.png"), "-c", render] + opts)
+    cli_s = time.perf_counter() - t0
+    got = np.asarray(Image.open(os.path.join(out_dir, "pred.png")))
+    args = test_cli.build_parser().parse_args(["-c", render] + opts)
+    tester = Tester(load_cfg(args), _stderr_logger("chip_smoke.inference_cli"))
+    tester._load_checkpoint()
+    from rnd_semantic_segmentation_torch.data.augment import Augmenter
+    from rnd_semantic_segmentation_torch.data.loader import preprocess_eval_image
+    img = preprocess_eval_image(Image.open(image).convert("RGB"),
+                                Augmenter(tester.cfg, mode="test", is_source=False)
+                                .build_transform())
+    x = torch.from_numpy(img[None]).to(tester.device).permute(0, 3, 1, 2).contiguous()
+    want = tester._probs_impl(x, (SERVE_H, SERVE_W)).argmax(1)[0].cpu().numpy()
+    log(f"[inference_cli] on {card}: cli.inference wrote a {got.shape[1]}x{got.shape[0]} "
+        f"palette PNG in {cli_s:.1f} s (model build, checkpoint load, one forward); "
+        f"{len(np.unique(got))} classes; equal to the Tester's argmax: "
+        f"{np.array_equal(got, want)}")
+    if not np.array_equal(got, want):
+        raise AssertionError("cli.inference's PNG differs from the Tester's argmax")
+    del tester
+
+    second = os.path.join(out_dir, "Aspp-seeded-1.pth")
+    cfg = load_cfg(train_src.build_parser().parse_args(_deeplab_opts(tmp)))
+    spec = build_segmentor(cfg)
+    randomize_weights_(torch.nn.ModuleDict(spec.modules), seed=1)
+    save_reference_checkpoint(spec.modules, second)
+    gt = os.path.join(out_dir, "gt.png")
+    Image.fromarray(rng.randint(0, 19, (SERVE_H, SERVE_W)).astype(np.uint8)).save(gt)
+    with open(os.path.join(out_dir, "images.txt"), "w") as f:
+        f.write(image + "\n")
+    with open(os.path.join(out_dir, "gts.txt"), "w") as f:
+        f.write(gt + "\n")
+    demo_render = {**load_json(render), "demo_image_path": os.path.join(out_dir, "images.txt"),
+                   "demo_groundtruth_path": os.path.join(out_dir, "gts.txt"),
+                   "weights": {"seed0": pth, "seed1": second}, "tensorboard": True}
+    with open(os.path.join(out_dir, "demo.json"), "w") as f:
+        json.dump(demo_render, f)
+    t0 = time.perf_counter()
+    preds = demo.cli(["-c", os.path.join(out_dir, "demo.json"), "-o",
+                      os.path.join(out_dir, "grid.png"), "-n", "1"] + opts)
+    demo_s = time.perf_counter() - t0
+    grid = Image.open(os.path.join(out_dir, "grid.png"))
+    curves = [load_json(os.path.join(out_dir, "pr_curves", k, "pr_curves.json"))
+              for k in ("seed0", "seed1")]
+    events = os.listdir(os.path.join(out_dir, "tb_demo"))
+    if (not np.array_equal(preds["seed0", 0], got) or len(curves[0]) != 19
+            or len(events) != 1):
+        raise AssertionError(f"cli.demo: column seed0 {np.array_equal(preds['seed0', 0], got)},"
+                             f" {len(curves[0])} PR curves, events {events}")
+    chart = os.path.join(tmp, "train", "gald_chart_params.json")
+    if not os.path.exists(chart):
+        chart = os.path.join(out_dir, "deeplab_chart_params.json")
+        with open(chart, "w") as f:
+            json.dump({"loss": list(np.linspace(3, 1, 50)), "learning rate": [2.5e-4] * 50}, f)
+    visualize.cli(["-j", chart, "-o", os.path.join(out_dir, "curves.png"), "-w", "5"])
+    curves_png = Image.open(os.path.join(out_dir, "curves.png"))
+    log(f"[inference_cli] cli.demo in {demo_s:.1f} s: a {grid.size[0]}x{grid.size[1]} grid "
+        f"(image, ground truth, two checkpoint columns), PR curves of 19 classes per column, "
+        f"{events[0]}; cli.visualize: a {curves_png.size[0]}x{curves_png.size[1]} figure of "
+        f"{os.path.basename(chart)}")
+    return _check_no_kernel("inference_cli")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -3611,12 +4116,26 @@ def main(argv=None) -> int:
         online_bf16_fwd, online_bf16_bwd, online_bf16_fused = phase_distill_online_bf16(tmp, card)
         torch.cuda.empty_cache()
         phase_remat(tmp, card)
+        torch.cuda.empty_cache()
+        quant_deeplab_launches = phase_quant_deeplab(tmp, card)
+        torch.cuda.empty_cache()
+        quant_gald_launches = phase_quant_gald(tmp, card)
+        torch.cuda.empty_cache()
+        quant_attn_launches = phase_quant_attn(tmp, card)
+        torch.cuda.empty_cache()
+        exported = phase_export(tmp, card)
+        torch.cuda.empty_cache()
+        inference_cli_launches = phase_inference_cli(tmp, card)
+    quant_launches = {"launches_quant_deeplab": quant_deeplab_launches,
+                      "launches_inference_cli": inference_cli_launches}
     kernels = [{
         "name": "cc_attention_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
         "launches": (serve_launches + train_fwd_launches + fada_gald_fwd + online_gald_fwd
-                     + bf16_fwd + online_bf16_fwd),
+                     + bf16_fwd + online_bf16_fwd + quant_gald_launches),
+        **quant_launches, "launches_quant_gald": quant_gald_launches, "launches_quant_attn": 0,
+        "launches_export_gald_call": exported["gald_float32"]["cc_launches"],
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_fwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
@@ -3644,7 +4163,8 @@ def main(argv=None) -> int:
         "launches_distill_online_gald": online_gald_bwd, "launches_distill_online_polyp": 0,
         "launches_device_aug": 0, "launches_train_bf16": bf16_bwd,
         "launches_fada_bf16": fada_bf16_launches, "launches_distill_online_bf16": online_bf16_bwd,
-        "launches_remat": 0, **bwd, "library_ms": None,
+        "launches_remat": 0, **quant_launches, "launches_quant_gald": 0,
+        "launches_quant_attn": 0, **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
@@ -3652,7 +4172,9 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
         "launches": (eval_attn_launches + serve_attn_launches + fada_attn_launches
                      + bli_launches + online_polyp_launches + device_aug_launches
-                     + online_bf16_fused),
+                     + online_bf16_fused + quant_attn_launches),
+        **quant_launches, "launches_quant_gald": 0, "launches_quant_attn": quant_attn_launches,
+        "launches_export_attn_call": exported["attn_float32"]["mbconv_launches"],
         "launches_eval_attn": eval_attn_launches,
         "launches_serve_attn": serve_attn_launches,
         "launches_deeplab": deeplab_launches,

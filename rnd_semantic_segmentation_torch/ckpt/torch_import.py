@@ -154,6 +154,110 @@ def _torch_prefix(scope: Tuple[str, ...], rules) -> str:
     return out
 
 
+# torch module name of a conv -> its flax scope path: the inverse of the rule
+# tables above for the names of convolutions (the quantization keys of
+# serve/quant.py are the JAX package's flax scopes).  ``conv_scopes``
+# checks every result by mapping it forward again.
+_INDEX = r"\.(\d+)(?=\.|$)"
+_ENCODER_SCOPES = [(_INDEX, r"_\1"), (r"\.", "/")]
+_DECODER_SCOPES = [
+    (r"^conva\.0$", "conva_conv"),
+    (r"dconv(\d)\.0$", r"dconv\1_conv"),
+    # fam*.conv0-conv2 are the convs of the conv+BN pairs b0-b2; conv3 is a
+    # conv of its own
+    (r"^fam(\d+)\.conv([0-2])$", r"fam\1/b\2/conv"),
+    (r"\.", "/"),
+]
+_ATTN_ENCODER_SCOPES = [
+    (r"^encoder\.", ""),
+    (r"^_blocks\.(\d+)\._", r"blocks_\1/"),
+    (r"^_", ""),
+    (r"\.", "/"),
+]
+_ATTN_DECODER_SCOPES = [
+    (r"^decode_(\d)\.0$", r"decode_\1/conv0"),
+    (r"^decode_(\d)\.3$", r"decode_\1/conv1"),
+    (r"^out_(\d)\.0$", r"out_\1"),
+    (r"\.", "/"),
+]
+_RESNET_BACKBONE_SCOPES = [
+    (r"layer(\d+)\.(\d+)", r"layer\1_\2"),
+    (r"downsample\.0$", "downsample_conv"),
+    (r"\.", "/"),
+]
+_ASPP_CLASSIFIER_SCOPES = [(r"^conv2d_list\.(\d+)$", r"conv2d_\1"), (r"\.", "/")]
+_VGG16_SCOPES = [
+    (r"^features\.(\d+)$", lambda m: f"conv{_VGG16_CONV_IDX.index(int(m.group(1)))}"),
+    (r"\.", "/"),
+]
+_PRANET_HEAD_SCOPES = [(r"branch(\d)\.(\d)", r"branch\1_\2"), (r"\.", "/")]
+_PRANET_SCOPES = [
+    (r"^resnet\.conv1\.0$", "resnet.stem_conv0"),
+    (r"^resnet\.conv1\.3$", "resnet.stem_conv1"),
+    (r"^resnet\.conv1\.6$", "resnet.stem_conv2"),
+    (r"layer(\d+)\.(\d+)", r"layer\1_\2"),
+    (r"convs\.(\d+)$", r"convs_\1"),
+    (r"downsample\.1$", "downsample_conv"),
+] + _PRANET_HEAD_SCOPES
+_CRANET_SCOPES = [
+    (r"layer(\d+)\.(\d+)", r"layer\1_\2"),
+    (r"downsample\.0$", "downsample_conv"),
+] + _PRANET_HEAD_SCOPES
+
+
+def _part_tables(family: str, part: str, names) -> Tuple[list, list]:
+    """(flax -> torch rules, torch -> flax conv rules) of one part; ``names``
+    are the part's module names, which tell the backbone apart."""
+    names = set(names)
+    if family == "deeplab":
+        if part == "classifier":
+            return _ASPP_CLASSIFIER_RULES, _ASPP_CLASSIFIER_SCOPES
+        if "backbone" in names:
+            return _RESNET_BACKBONE_RULES, _RESNET_BACKBONE_SCOPES
+        return _VGG16_RULES, _VGG16_SCOPES
+    if family == "gald":
+        return ((_ENCODER_RULES, _ENCODER_SCOPES) if part == "encoder"
+                else (_DECODER_RULES, _DECODER_SCOPES))
+    if family == "attn":
+        return ((_ATTN_ENCODER_RULES, _ATTN_ENCODER_SCOPES) if part == "encoder"
+                else (_ATTN_DECODER_RULES, _ATTN_DECODER_SCOPES))
+    if family == "pranet":
+        return ((_PRANET_RULES, _PRANET_SCOPES) if "resnet.conv1.0" in names
+                else (_CRANET_RULES, _CRANET_SCOPES))
+    raise NotImplementedError(f"{family}: no weight bridge for part {part!r}")
+
+
+def conv_scopes(family: str, part: str, names, convs) -> Dict[str, str]:
+    """``{torch module name: flax scope path}`` for the convs ``convs`` of one
+    part whose module names are ``names`` (they tell the backbone apart).
+    The scope is the JAX package's ``module_path`` of the same conv: the path,
+    inside its part, to which the bridge maps its ``weight``.  attnwrap's
+    ``model`` part holds the attn encoder and decoder under ``encoder.`` and
+    ``decoder.`` here and ``encoder/`` and ``decoder/`` there.  Each scope is
+    mapped forward through the part's rules again; a name that does not come
+    back raises."""
+    names, convs = list(names), list(convs)
+    if family == "attnwrap":
+        out = {}
+        for sub in ("encoder", "decoder"):
+            inner = lambda group: [n[len(sub) + 1:] for n in group if n.startswith(sub + ".")]
+            out.update({f"{sub}.{n}": f"{sub}/{s}" for n, s in
+                        conv_scopes("attn", sub, inner(names), inner(convs)).items()})
+        return out
+    rules, scopes = _part_tables(family, part, names)
+    out = {}
+    for name in convs:
+        scope = name
+        for pat, rep in scopes:
+            scope = re.sub(pat, rep, scope)
+        back = _torch_prefix((scope,), rules)
+        if back != name:
+            raise ValueError(f"{family} {part}: conv {name!r} maps to scope {scope!r}, "
+                             f"which the bridge maps to {back!r}")
+        out[name] = scope
+    return out
+
+
 def _state_dict_from_flax(variables: Mapping, rules,
                           transposed_conv_paths: Tuple[str, ...] = ()
                           ) -> Dict[str, torch.Tensor]:

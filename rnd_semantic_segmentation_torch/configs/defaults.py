@@ -9,7 +9,11 @@ The port reads, for serving: MODEL.NAME, MODEL.NUM_CLASSES, MODEL.DEVICE,
 MODEL.FREEZE_BN (deeplab family: FrozenBN in the ResNet), MODEL.FUSED_MBCONV
 (attn family, eval mode: the fused MBConv kernel), INPUT.INPUT_SIZE_TEST,
 INPUT.PIXEL_MEAN/PIXEL_STD/TO_BGR255 (the aspp transforms), AUG.NAME,
-TEST.QUANT, TEST.FLIP_TTA/MULTI_SCALE/SCALES (deeplab test-time
+TEST.QUANT, TEST.QUANT_CALIB_BATCHES, TEST.QUANT_MAX_AREA,
+TEST.QUANT_AGREEMENT_FLOOR, TEST.QUANT_MIN_CHANNELS and TEST.QUANT_REPAIR_MAX
+(post-training int8 quantization of eval, serving, inference and export,
+serve/quant.py; an unknown TEST.QUANT raises ValueError),
+TEST.FLIP_TTA/MULTI_SCALE/SCALES (deeplab test-time
 augmentation, one image a batch), OUTPUT_DIR and resume; for evaluation also
 DATASETS.DATASET_DIR/TEST/CROSS_VAL/SYNTHETIC_LENGTH, TEST.BATCH_SIZE,
 INPUT.IGNORE_LABEL, INPUT.TRAINSIZE (the pra transforms, and pranet's
@@ -151,9 +155,9 @@ _C.TEST.BATCH_SIZE = 1
 _C.TEST.FLIP_TTA = False
 _C.TEST.MULTI_SCALE = False
 _C.TEST.SCALES = (0.7, 1.0, 1.3)
-_C.TEST.QUANT = "none"                    # the port serves "none" only so far
+_C.TEST.QUANT = "none"                    # none | int8 | fake | auto (serve/quant.py)
 _C.TEST.QUANT_CALIB_BATCHES = 2
-_C.TEST.QUANT_MAX_AREA = 1048576
+_C.TEST.QUANT_MAX_AREA = 1048576  # the JAX tree's value (a TPU's policy), not the port's measurement
 _C.TEST.QUANT_AGREEMENT_FLOOR = 0.95
 _C.TEST.QUANT_MIN_CHANNELS = 64
 _C.TEST.QUANT_REPAIR_MAX = 6

@@ -33,9 +33,20 @@ mIoU/F1) is logged and ``<family>_confusion_matrix.json`` is written to
 OUTPUT_DIR.  With ``saveres`` each image's argmax is also written as a
 palette PNG (the render config's ``palette``) to
 ``PSEUDO_DIR/inference/<DATASETS.TEST>/<name>.png``, at the label's size: the
-pseudo-labels of self-distillation.  Quantized eval raises until its slice
-is ported; the confusion-matrix heat map and multi-device eval are not
-ported.
+pseudo-labels of self-distillation.  Beside the JSON, the heat map of the
+row-normalised matrix goes to ``<family>_confusion_matrix.png``
+(``utils/plots.py``).
+
+``TEST.QUANT`` (none, int8, fake, auto) quantizes the eval forward after
+post-training calibration (serve/quant.py): ``make_quant_context`` calibrates
+on the first ``TEST.QUANT_CALIB_BATCHES`` batches of the test loader and
+applies the JAX Tester's policy (``auto``: float32 above
+``TEST.QUANT_MAX_AREA`` pixels, reason ``geometry``, or when the argmax
+agreement with float32 on the first batch stays below
+``TEST.QUANT_AGREEMENT_FLOOR`` after ``repair_exclusions``, reason
+``accuracy``; ``repaired`` when the repair reached it), and ``test()`` runs
+inside its scope.  ``quant_report`` records the outcome.  Multi-device eval
+is not ported.
 """
 
 from __future__ import annotations
@@ -51,8 +62,11 @@ from ..ckpt.torch_import import load_part, load_reference_checkpoint
 from ..data.loader import device_prefetch
 from ..models.build import build_segmentor
 from ..ops import resize_bilinear
+from ..serve.quant import (QuantConfig, argmax_agreement, calibrate_segmentor, quant_error_report,
+                           quant_scope, repair_exclusions, resolve_mode)
 from ..train.segmentor import Segmentor
 from ..utils import dump_json, resolve_device
+from ..utils.plots import plot_confusion_matrix
 from . import tta
 from .metrics import AverageMeter, confusion_matrix, intersection_and_union
 from .palette import save_pseudo_label
@@ -136,15 +150,96 @@ class Tester:
             return torch.stack([1 - p, p], dim=1)
         raise NotImplementedError(fam)
 
+    # -- quantization ------------------------------------------------------------
+    def _loader_input(self, batch) -> Tuple[torch.Tensor, Tuple[int, int]]:
+        """A loader batch -> the model input [B,3,H,W] on the device, and the
+        label size."""
+        x = torch.as_tensor(batch["image"]).to(self.device).permute(0, 3, 1, 2).contiguous()
+        size = (tuple(np.shape(batch["label"])[1:3]) if "label" in batch
+                else tuple(x.shape[-2:]))
+        return x, size
+
+    def make_quant_context(self):
+        """``TEST.QUANT`` != none: calibrates activation scales on the first
+        ``TEST.QUANT_CALIB_BATCHES`` batches of the test loader and returns a
+        ``QuantContext`` (None for float32), with the JAX Tester's policy.
+        Explicit int8 and fake are honoured, with a warning when they miss
+        the agreement floor.  Cached: calibration runs once per Tester; the
+        outcome is in ``self.quant_report``."""
+        if hasattr(self, "_qctx"):
+            return self._qctx
+        requested = self.cfg.TEST.QUANT
+        self.quant_report = {"requested": requested, "mode": "none", "agreement": None,
+                             "reason": ""}
+        w, h = self.cfg.INPUT.INPUT_SIZE_TEST
+        mode = resolve_mode(requested, area=int(w) * int(h),
+                            max_area=self.cfg.TEST.QUANT_MAX_AREA, device=self.device)
+        if requested == "none":
+            self._qctx = None
+            return None
+        if torch.distributed.is_available() and torch.distributed.is_initialized() \
+                and torch.distributed.get_world_size() > 1:
+            # the JAX Tester serves float32 here (reason "multiprocess"): the
+            # port has no multi-process eval (DIST.* raises), so neither
+            raise RuntimeError(f"TEST.QUANT={requested}: quantized eval runs in one process")
+        if mode == "none":
+            self.logger.info(f"TEST.QUANT=auto: {w}x{h} exceeds QUANT_MAX_AREA="
+                             f"{self.cfg.TEST.QUANT_MAX_AREA}; evaluating in float32")
+            self.quant_report["reason"] = "geometry"
+            self._qctx = None
+            return None
+        if mode != requested and requested != "auto":
+            self.logger.info(f"TEST.QUANT={requested}: torch._int_mm fails on "
+                             f"{self.device}; using the '{mode}' path")
+        if self.test_loader is None:
+            raise ValueError(f"TEST.QUANT={requested} calibrates on the test_loader the "
+                             f"Tester was built without")
+        qcfg = QuantConfig(mode=mode, calib_batches=self.cfg.TEST.QUANT_CALIB_BATCHES,
+                           min_channels=self.cfg.TEST.QUANT_MIN_CHANNELS)
+        ctx = calibrate_segmentor(self.segmentor, self.test_loader, config=qcfg)
+
+        floor = float(self.cfg.TEST.QUANT_AGREEMENT_FLOOR)
+        if floor > 0:
+            x, ls = self._loader_input(next(iter(self.test_loader)))
+            agreement = argmax_agreement(self._probs_impl, x, ls, ctx)
+            self.quant_report["agreement"] = agreement
+            if agreement < floor:
+                if requested == "auto":
+                    max_ex = int(self.cfg.TEST.QUANT_REPAIR_MAX)
+                    if max_ex > 0:
+                        agreement, excluded = repair_exclusions(
+                            self._probs_impl, x, ls, ctx, floor, max_exclude=max_ex,
+                            logger=self.logger)
+                        self.quant_report["agreement"] = agreement
+                        self.quant_report["excluded"] = excluded
+                    if agreement < floor:
+                        self.logger.info(f"TEST.QUANT=auto: argmax agreement {agreement:.3f} "
+                                         f"< floor {floor} even after repair; evaluating "
+                                         f"in float32")
+                        self.quant_report["reason"] = "accuracy"
+                        self._qctx = None
+                        return None
+                    self.quant_report["reason"] = "repaired"
+                else:
+                    self.logger.warning(
+                        f"TEST.QUANT={requested}: argmax agreement {agreement:.3f} < floor "
+                        f"{floor}; honouring the explicit request (TEST.QUANT auto gates "
+                        f"on accuracy)")
+        self.quant_report["mode"] = mode
+        self.logger.info(f"eval quantization: {quant_error_report(ctx)}")
+        self._qctx = ctx
+        return ctx
+
     # -- loop --------------------------------------------------------------------
-    @torch.inference_mode()
     def test(self) -> Dict:
-        cfg = self.cfg
         if self.test_loader is None:
             raise ValueError("Tester.test() needs the test_loader it was built without")
-        if cfg.TEST.QUANT != "none":
-            raise NotImplementedError(
-                f"TEST.QUANT={cfg.TEST.QUANT}: quantized eval is not ported yet")
+        with quant_scope(self.make_quant_context()):
+            return self._test_loop()
+
+    @torch.inference_mode()
+    def _test_loop(self) -> Dict:
+        cfg = self.cfg
         nc, ignore = cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL
         pending = []  # per batch: areas [4,C] and confusion matrix, on the device
         batches = device_prefetch(iter(self.test_loader), cfg.DATA_PIPE.PREFETCH,
@@ -169,4 +264,7 @@ class Tester:
         summary = meter.summary(self.logger)
         dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.spec.family}_confusion_matrix.json"),
                   {"cmt": cmt.tolist(), "classes": list(self.trainid2name.values())})
+        plot_confusion_matrix(
+            cmt, list(self.trainid2name.values()) or [str(i) for i in range(nc)],
+            out_path=os.path.join(cfg.OUTPUT_DIR, f"{self.spec.family}_confusion_matrix.png"))
         return summary

@@ -36,7 +36,8 @@ from .attn_unet import _DEPTH_MAP, AttnDecoder, AttnEfficientNetUnet
 from .discriminator import PixelDiscriminator
 from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
-from .layers import FrozenBatchNorm2d
+from ..ckpt.torch_import import conv_scopes
+from .layers import Conv2d, FrozenBatchNorm2d
 from .pranet import PraNet
 from .remat import set_remat_blocks
 from .res2net import Res2Net
@@ -71,7 +72,21 @@ def build_segmentor(cfg) -> SegmentorSpec:
     spec = _build_segmentor(cfg)
     for module in spec.modules.values():
         set_remat_blocks(module, bool(cfg.MODEL.REMAT_BLOCKS))
+    assign_quant_keys(spec.family, spec.modules)
     return spec
+
+
+def assign_quant_keys(family: str, modules: Dict[str, nn.Module]) -> None:
+    """Gives every ``layers.Conv2d`` of each part its quantization key
+    (``quant_key``), the flax scope path of the JAX package's conv, from the
+    weight bridge's rule tables (``ckpt.torch_import.conv_scopes``).  Two
+    convs of two parts may share a key, as in the JAX package: calibration
+    then takes the larger absmax of the two and both use that scale."""
+    for part, module in modules.items():
+        named = dict(module.named_modules())
+        convs = [n for n, m in named.items() if isinstance(m, Conv2d)]
+        for name, scope in conv_scopes(family, part, named, convs).items():
+            named[name].quant_key = scope
 
 
 def _build_segmentor(cfg) -> SegmentorSpec:

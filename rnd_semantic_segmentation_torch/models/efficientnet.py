@@ -161,14 +161,15 @@ class MBConvBlock(RematBlock):
 
     def _fold(self, dtype: torch.dtype):
         """``(w_exp, s0, b0, w_dw, s1, b1)`` for the fused core.  Cached when
-        autograd is off; with it on (no cache) the fold keeps its graph."""
+        autograd is off; with it on (no cache) the fold keeps its graph, and
+        under ``torch.export`` (no cache) it is traced into the program."""
         def fold():
             s0, b0 = fold_bn(self._bn0)
             s1, b1 = fold_bn(self._bn1)
             return (self._expand_conv.weight.flatten(1).to(dtype), s0, b0,
                     self._depthwise_conv.weight.squeeze(1).float(), s1, b1)
 
-        if torch.is_grad_enabled():
+        if torch.is_grad_enabled() or torch.compiler.is_compiling():
             return fold()
         read = (self._expand_conv.weight, self._depthwise_conv.weight,
                 *(getattr(bn, name) for bn in (self._bn0, self._bn1)

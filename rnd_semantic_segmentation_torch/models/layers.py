@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mbconv import swish  # noqa: F401  (x * sigmoid(x), shared with the kernel's plain version)
+from ..serve.quant import current_quant, module_path
 
 def cast_param(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
     """``p`` in ``x``'s type (itself when they agree), ``None`` kept."""
@@ -35,9 +36,22 @@ def cast_param(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Ten
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` computing in its input's type, its parameters cast."""
+    """``nn.Conv2d`` computing in its input's type, its parameters cast.
+
+    Inside a ``quant_scope`` (serve/quant.py) the conv goes through the
+    context's ``conv2d`` under its ``quant_key``, the JAX package's flax
+    scope path, which ``models.build.build_segmentor`` assigns; where the
+    context declines (None) it takes its float path."""
+
+    quant_key: Optional[str] = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        qctx = current_quant()
+        if qctx is not None:
+            y = qctx.conv2d(module_path(self), x, self.weight, self.bias, self.stride,
+                            self.padding, self.dilation, self.groups)
+            if y is not None:
+                return y
         return self._conv_forward(x, cast_param(self.weight, x), cast_param(self.bias, x))
 
 

@@ -23,6 +23,10 @@ attention from the saved q, k, v, as the JAX package's custom VJP does, in
 three passes: the row branch's softmax partials, the column branch in full
 (joint statistics and its contributions), then the row branch and the sum.
 CPU tensors go to ``cc_attention_core_plain`` under ordinary autograd.
+Without gradients the forward is the operator
+``torch.ops.rnd_seg_torch.cc_attention_fwd`` (``cc_attention_fwd``): the
+kernel for CUDA tensors, the plain version for CPU ones, and a shape for
+``torch.export``'s fake tensors, so that an exported program holds it.
 ``KERNEL_LAUNCHES`` counts forward calls and ``BWD_KERNEL_LAUNCHES``
 backward calls.
 """
@@ -291,8 +295,36 @@ class CrissCrossFunction(torch.autograd.Function):
         return cc_attention_core_bwd_plain(q, k, v, g)
 
 
+@torch.library.custom_op("rnd_seg_torch::cc_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def cc_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward as one operator: ``torch.export`` records it in a program,
+    where the ctypes launch (raw ``data_ptr()``s) could not be traced.  CUDA
+    tensors launch the kernel (``cc_attention_core_cuda``); CPU tensors take
+    the plain version.  A program may hand it other strides than the ones
+    it was traced with, so the inputs are made contiguous here."""
+    return cc_attention_core_cuda(q.contiguous(), k.contiguous(), v.contiguous())
+
+
+@cc_attention_fwd.register_kernel("cpu")
+def _cc_attention_fwd_cpu(q, k, v):
+    return cc_attention_core_plain(q, k, v)
+
+
+@cc_attention_fwd.register_fake
+def _cc_attention_fwd_fake(q, k, v):
+    return torch.empty_like(v)
+
+
 def cc_attention_core(q: torch.Tensor, k: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
-    if all(t.device.type == "cpu" for t in (q, k, v)):
+    """Without gradients, CPU or CUDA tensors go through the operator
+    ``cc_attention_fwd``; with them, CPU tensors take the plain version
+    under autograd; anything else goes to ``CrissCrossFunction``."""
+    devices = {t.device.type for t in (q, k, v)}
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if grad and devices == {"cpu"}:
         return cc_attention_core_plain(q, k, v)
+    if not grad and devices in ({"cpu"}, {"cuda"}):
+        return cc_attention_fwd(q, k, v)
     return CrissCrossFunction.apply(q, k, v)

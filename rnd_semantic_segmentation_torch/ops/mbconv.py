@@ -20,7 +20,10 @@ is float32.
 ``fused_mbconv_core`` dispatches by the device the tensors lie on.  CUDA
 tensors go to ``fused_mbconv_core_cuda``, which launches the kernel in
 ``csrc/mbconv_fwd.cu`` or raises; CPU tensors go to
-``fused_mbconv_core_plain``.  ``KERNEL_LAUNCHES`` counts launches.
+``fused_mbconv_core_plain``.  Without gradients both go through the operator
+``torch.ops.rnd_seg_torch.fused_mbconv_fwd`` (``fused_mbconv_fwd``), whose
+shape function lets ``torch.export`` record it in a program.
+``KERNEL_LAUNCHES`` counts launches.
 """
 
 from __future__ import annotations
@@ -164,8 +167,40 @@ def fused_mbconv_core_cuda(x, w_exp, s0, b0, w_dw, s1, b1) -> torch.Tensor:
     return out
 
 
+@torch.library.custom_op("rnd_seg_torch::fused_mbconv_fwd", mutates_args=(),
+                         device_types="cuda")
+def fused_mbconv_fwd(x: torch.Tensor, w_exp: torch.Tensor, s0: torch.Tensor,
+                     b0: torch.Tensor, w_dw: torch.Tensor, s1: torch.Tensor,
+                     b1: torch.Tensor) -> torch.Tensor:
+    """The kernel as one operator, which ``torch.export`` records in a
+    program (the ctypes launch could not be traced): CUDA tensors launch it
+    (``fused_mbconv_core_cuda``), CPU tensors take the plain version.  A
+    program may hand it other strides than the ones it was traced with (an
+    exported graph keeps no ``contiguous()`` of a tensor that was contiguous
+    when traced), so the inputs are made contiguous here."""
+    return fused_mbconv_core_cuda(*(t.contiguous() for t in (x, w_exp, s0, b0, w_dw, s1, b1)))
+
+
+@fused_mbconv_fwd.register_kernel("cpu")
+def _fused_mbconv_fwd_cpu(x, w_exp, s0, b0, w_dw, s1, b1):
+    return fused_mbconv_core_plain(x, w_exp, s0, b0, w_dw, s1, b1)
+
+
+@fused_mbconv_fwd.register_fake
+def _fused_mbconv_fwd_fake(x, w_exp, s0, b0, w_dw, s1, b1):
+    return x.new_empty((x.shape[0], w_dw.shape[0], x.shape[2], x.shape[3]))
+
+
 def fused_mbconv_core(x, w_exp, s0, b0, w_dw, s1, b1) -> torch.Tensor:
+    """Without gradients, CPU or CUDA tensors go through the operator
+    ``fused_mbconv_fwd``; with them, CPU tensors take the plain version;
+    anything else goes to ``fused_mbconv_core_cuda``, which launches the
+    kernel or raises."""
     args = (x, w_exp, s0, b0, w_dw, s1, b1)
-    if all(t.device.type == "cpu" for t in args):
+    devices = {t.device.type for t in args}
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in args)
+    if grad and devices == {"cpu"}:
         return fused_mbconv_core_plain(*args)
+    if not grad and devices in ({"cpu"}, {"cuda"}):
+        return fused_mbconv_fwd(*args)
     return fused_mbconv_core_cuda(*args)

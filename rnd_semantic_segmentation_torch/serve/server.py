@@ -22,6 +22,14 @@ Design notes:
     rows are copied back.
   * preprocessing reuses the family's test ``Augmenter`` transform.
   * Pillow decodes and encodes the images; it is imported where it is used.
+  * ``TEST.QUANT`` (serve/quant.py): the geometry half of ``auto`` resolves
+    at construction (the serving shape is fixed); the activation scales are
+    calibrated on the first real batch (the warmup's zeros would calibrate
+    nothing), with the Tester's accuracy policy; until then the server
+    answers in float32 and reports ``pending-calibration``.  The dispatcher
+    thread enters the quant scope itself: a new thread starts outside the
+    constructing thread's ``contextvars`` context.  ``/stats``, ``/healthz``
+    and the startup log give the resolved mode.
 """
 
 from __future__ import annotations
@@ -58,10 +66,8 @@ class InferenceServer:
                  batch_timeout_ms: float = 5.0, max_queue: int = 0):
         from ..data.augment import Augmenter
         from ..eval.tester import Tester
+        from .quant import resolve_mode
 
-        if cfg.TEST.QUANT != "none":
-            raise NotImplementedError(
-                f"TEST.QUANT={cfg.TEST.QUANT}: quantized serving is not ported yet")
         self.cfg = cfg
         self.logger = logger
         self.palette = list(render.get("palette", [])) or None
@@ -74,6 +80,15 @@ class InferenceServer:
                                    is_source=False).build_transform()
         self.tester = Tester(cfg, logger)
         self.tester._load_checkpoint()
+        h, w = self._shape()
+        self._qctx = None
+        self._quant_mode = resolve_mode(cfg.TEST.QUANT, area=h * w,
+                                        max_area=cfg.TEST.QUANT_MAX_AREA,
+                                        device=self.tester.device)
+        if cfg.TEST.QUANT != "none" and self._quant_mode == "none":
+            logger.info(f"TEST.QUANT={cfg.TEST.QUANT}: {w}x{h} exceeds QUANT_MAX_AREA="
+                        f"{cfg.TEST.QUANT_MAX_AREA}; serving float32")
+        self._needs_calib = self._quant_mode != "none"
 
         self._queue: List[_Pending] = []
         self._cv = threading.Condition()
@@ -119,17 +134,41 @@ class InferenceServer:
             b *= 2
         self.ready.set()
         self.logger.info(f"server warm: batch buckets <= {self.max_batch} @ {h}x{w} "
-                         f"on {self.tester.device}")
+                         f"on {self.tester.device}, TEST.QUANT={self.cfg.TEST.QUANT} resolved "
+                         f"to {self._quant_mode} ({self.quant_state()})")
+
+    def quant_state(self) -> str:
+        """The resolved mode being served: ``none``, ``int8`` or ``fake``, or
+        ``pending-calibration`` before the first real batch."""
+        if self._qctx is not None:
+            return self._qctx.mode
+        return "pending-calibration" if self._needs_calib else "none"
+
+    def _calibrate(self, x: np.ndarray) -> None:
+        """Calibrates on the first real batch x [B,H,W,3] (the dispatcher's)
+        through ``Tester.make_quant_context``, with x as its one test batch:
+        the Tester's policy (``auto`` serves float32 when the argmax agreement
+        stays below the floor after the repair; an explicit mode is honoured
+        with a warning) and its ``quant_report``."""
+        self.tester.test_loader = [{"image": x}]
+        self._qctx = self.tester.make_quant_context()
+        self._needs_calib = False
+        self.logger.info(f"serving quantization calibrated on the first batch: "
+                         f"{self.tester.quant_report}")
 
     def _shape(self):
         size = self.cfg.INPUT.INPUT_SIZE_TEST
         return int(size[1]), int(size[0])  # (H, W) from (W, H) convention
 
     def _run(self, x: np.ndarray, n: Optional[int] = None) -> List[np.ndarray]:
-        """x [B,H,W,3] float32 -> the first ``n`` argmax maps (default: all)."""
+        """x [B,H,W,3] float32 -> the first ``n`` argmax maps (default: all),
+        under the quant scope, which this (the dispatcher's) thread enters."""
+        from .quant import quant_scope
+
         dev = self.tester.device
         xt = torch.from_numpy(x).to(dev).permute(0, 3, 1, 2).contiguous()
-        probs = self.tester._probs_impl(xt, tuple(xt.shape[-2:]))
+        with quant_scope(self._qctx):
+            probs = self.tester._probs_impl(xt, tuple(xt.shape[-2:]))
         preds = probs.argmax(dim=1).to(torch.uint8)
         n = preds.shape[0] if n is None else n
         return list(preds[:n].cpu().numpy())
@@ -157,6 +196,8 @@ class InferenceServer:
                 x = np.zeros((self._bucket(len(batch)), h, w, 3), np.float32)
                 for i, p in enumerate(batch):
                     x[i] = p.image
+                if self._needs_calib:
+                    self._calibrate(x)
                 preds = self._run(x, n=len(batch))
                 for i, p in enumerate(batch):
                     p.pred = preds[i]
@@ -238,7 +279,8 @@ def _make_handler(server: InferenceServer):
         def do_GET(self):
             if self.path.startswith("/healthz"):
                 if server.ready.is_set():
-                    self._send(200, b'{"status": "ok", "quant": "none"}')
+                    self._send(200, json.dumps({"status": "ok",
+                                                "quant": server.quant_state()}).encode())
                 else:
                     self._send(503, b'{"status": "warming"}')
             elif self.path.startswith("/stats"):
@@ -247,7 +289,7 @@ def _make_handler(server: InferenceServer):
                     s["batched_images"] / max(s["batches"], 1), 3)
                 s["ready"] = server.ready.is_set()
                 s["model"] = server.cfg.MODEL.NAME
-                s["quant"] = "none"
+                s["quant"] = server.quant_state()
                 self._send(200, json.dumps(s).encode())
             else:
                 self._send(404, b'{"error": "not found"}')

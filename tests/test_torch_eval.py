@@ -254,8 +254,8 @@ def test_what_waits_raises(workdir, monkeypatch):
         Tester(cfg, log, saveres=True)
     with pytest.raises(ValueError, match="test_loader"):
         Tester(cfg, log).test()
-    quant = load_cfg(_port_args(workdir, workdir / "raises", "TEST.QUANT", "int8"))
-    with pytest.raises(NotImplementedError, match="QUANT"):
+    quant = load_cfg(_port_args(workdir, workdir / "raises", "TEST.QUANT", "int4"))
+    with pytest.raises(ValueError, match="int4"):
         test_cli.make_tester(quant, RENDER, logger=log).test()
     unknown = load_cfg(_port_args(workdir, workdir / "raises", "AUG.NAME", "exotic"))
     with pytest.raises(ValueError, match="exotic"):

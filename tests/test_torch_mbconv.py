@@ -212,8 +212,10 @@ def test_dispatch_takes_the_plain_version_only_for_cpu_tensors(monkeypatch):
     calls = []
     monkeypatch.setattr(mbconv, "fused_mbconv_core_cuda",
                         lambda *a: calls.append("cuda") or a[0])
+    # a copy: without autograd the CPU call goes through the operator
+    # fused_mbconv_fwd, whose output may not alias an input
     monkeypatch.setattr(mbconv, "fused_mbconv_core_plain",
-                        lambda *a: calls.append("plain") or a[0])
+                        lambda *a: calls.append("plain") or a[0].clone())
     fused_mbconv_core(*_valid())
     fused_mbconv_core(*_bad(0, lambda x: x.to("meta")))
     assert calls == ["plain", "cuda"]

@@ -14,6 +14,7 @@ import json
 import logging
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -203,7 +204,20 @@ def test_cuda_device_without_a_card_raises(tmp_path, monkeypatch):
         Tester(cfg, logging.getLogger("torch_serve"))
 
 
-def test_quantized_serving_is_not_ported(tmp_path):
-    cfg = _port_cfg(tmp_path, "TEST.QUANT", "int8")
-    with pytest.raises(NotImplementedError):
-        InferenceServer(cfg, {}, logging.getLogger("torch_serve"))
+def test_quantized_serving_resolves_its_mode_at_construction(served):
+    """TEST.QUANT: an unknown mode raises; ``auto`` above QUANT_MAX_AREA
+    serves float32 from the start; ``int8`` waits for its first real batch
+    to calibrate (tests/test_torch_quant.py serves it)."""
+    tmp = Path(served[2].OUTPUT_DIR)
+    with pytest.raises(ValueError, match="int4"):
+        InferenceServer(_port_cfg(tmp, "TEST.QUANT", "int4"), {},
+                        logging.getLogger("torch_serve"))
+    for mode, area, state in (("auto", "1024", "none"), ("int8", "0", "pending-calibration")):
+        inf = InferenceServer(_port_cfg(tmp, "TEST.QUANT", mode,
+                                        "TEST.QUANT_MAX_AREA", area), {},
+                              logging.getLogger("torch_serve"), max_batch=1)
+        try:
+            assert inf.ready.wait(300)
+            assert inf.quant_state() == state and inf._qctx is None
+        finally:
+            inf.shutdown()
