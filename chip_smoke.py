@@ -32,7 +32,8 @@ no result line on any failure.  Phases, each of which raises:
               kernel launches are counted over exactly those steps, the
               attention's parameters must receive gradients and move, one
               step's gradients are held against the same step with the plain
-              core, and the checkpoint it wrote loads back into ``Tester``;
+              core on the kernel step's decoder ReLU masks, and the checkpoint
+              it wrote loads back into ``Tester``;
   6. eval_attn   the attn eval path: Attention-EfficientNet-B2-UNet (2 classes,
               full width and depth, seeded weights) through the test CLI's
               parser and ``Tester.test()`` at 512x512, batch 8, on the
@@ -249,6 +250,40 @@ no result line on any failure.  Phases, each of which raises:
               the Tester's argmax), ``cli.demo`` with two checkpoint columns
               and ground truth (grid, PR curves, image events), and
               ``cli.visualize`` (figures drawn with Pillow).
+ 38. dist_deeplab  configs/deeplabv2_r101_src.yaml in bfloat16 through
+              ``cli.train_src``, 4 steps of 6 at 1280x720, without DIST and
+              with DIST.INITIALIZE in a world of one over NCCL (the script
+              sets the ``env://`` variables): equal loss series (1e-2), ms a
+              step and peak memory of both;
+ 39. dist_gald_2rank  two processes of this script (``--dist-worker``) on
+              the one card over gloo (NCCL takes one rank a device), each a
+              rank of GALD's ``cli.train_src`` trainer under DIST.INITIALIZE:
+              2 images at 1024x512 a rank, 3 steps, float32, against this
+              process taking all 4; the losses, weights and BatchNorm buffers
+              within DIST_GALD_TOLERANCE; #1 and #2 twice a step in each rank;
+ 40. dist_eval  ``cli.test`` with two ranks on the card over gloo against
+              this process on 10 of 11 synthetic images (DeepLab-R101's
+              checkpoint at 1024x512, TEST.BATCH_SIZE 4): the confusion
+              matrices agree on MIN_MASK_AGREEMENT of the pixels (cuDNN sums
+              in another order at 2 images a forward than at 4), micro mIoU
+              within 1e-3, the left-out image named in the log;
+              TEST.QUANT int8 over two ranks in float32, reason
+              ``multiprocess``;
+ 41. async_ckpt  DeepLab-R101 in bfloat16, 3 epochs of 2 steps, a
+              checkpoint each epoch, 2 kept, written in the loop and then in
+              the background: ms the loop waited at each save, the bytes;
+              the background file equal to a synchronous save of the same
+              state; ``resume latest`` waits for a write in flight;
+ 42. native_decode  the libjpeg/libpng decoder built on this machine and
+              timed against PIL, and attn from files with NATIVE_DECODE off
+              and on; where it does not build, the port's raise with the
+              compiler's message;
+ 43. recipes_tpu  each configs/*_tpu.yaml recipe through its train CLI from
+              files for one epoch, with async checkpoints, device
+              augmentation, worker processes and native decode as written
+              (the overrides are listed in ``phase_recipes_tpu``): images/s,
+              data share, peak memory, the checkpoint's wait; the GALD
+              recipe launches #1 and #2 twice a step.
 Every phase before train_bf16 pins MODEL.DTYPE float32 (``FLOAT32``).
 The online phases cut the datasets to their steps (``_FirstItems``); each
 earlier phase keeps its depth.
@@ -257,8 +292,8 @@ TARGET_INPUT_SIZE_TRAIN to 352 squared besides the data, the output and the
 run's length: the configs leave them at their defaults, to which the
 readers resize each item after the pra transform (ROADMAP Queue 3).
 Hand kernels lie on the GALD paths (#1 and #2: serving, training, FADA and
-online distillation, in float32 and in bfloat16; #1 also in int8 serving and
-the GALD export) and on the attn eval paths (#3: eval, serving, the bli_val
+online distillation, in float32 and in bfloat16, each rank of a world of two
+and the GALD TPU recipe; #1 also in int8 serving and the GALD export) and on the attn eval paths (#3: eval, serving, the bli_val
 evals, the online attn teacher, the last also in bfloat16, int8 eval and the
 attn export); no hand kernel lies on the
 DeepLab, VGG16 or PraNet paths, nor on attn training (source, FADA or the
@@ -274,7 +309,8 @@ train_fada_files, saveres_cityscapes, train_distill_files, train_attn_files,
 train_pranet, eval_pranet, serve_pranet, train_fada_pranet, train_distill_online,
 train_distill_online_gald, train_distill_online_polyp, device_aug, train_bf16,
 train_fada_bf16, distill_online_bf16, remat, quant_deeplab, quant_gald,
-quant_attn, export, inference_cli; device and build always run) and prints no result lines: an aid while
+quant_attn, export, inference_cli, dist_deeplab, dist_gald_2rank, dist_eval, async_ckpt,
+native_decode, recipes_tpu; device and build always run) and prints no result lines: an aid while
 working on one path.  A phase before data_files that evaluates or serves a
 checkpoint makes a seeded one when the phase that trains it did not run; a
 phase after it that reads another's output (files, a checkpoint,
@@ -284,7 +320,9 @@ pseudo-labels) raises, naming that phase.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
+import gc
 import http.client
 import io
 import json
@@ -356,7 +394,11 @@ BWD_TOLERANCE = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # upsampling adds with atomics, in an order that differs from run to run (the
 # run prints that spread beside the comparison); both differences pass through
 # 68 layers of batch-statistics BatchNorm and ReLU, which amplify them (2e-5
-# for the atomics alone and 7e-4 for the cores on an NVIDIA H100)
+# for the atomics alone and 7e-4 for the cores on an NVIDIA H100).  The plain
+# step runs on the kernel step's decoder ReLU masks (``_ReluPins``): a ReLU
+# whose input lies within rounding of 0 would otherwise put the two steps on
+# different linear pieces, and one such element in a local-attention branch
+# moved a BatchNorm bias's gradient by 8.4e-3 of its norm on an H100
 GRAD_TOLERANCE = 5e-3
 N_REQUESTS, N_THREADS, MAX_BATCH = 16, 8, 8
 MIN_MASK_AGREEMENT = 0.999
@@ -1267,6 +1309,72 @@ def _worst_leaf(grads, refs):
     return worst, worst_name
 
 
+class _ReluPins:
+    """Pins the GALD decoder's ReLU masks from one step to the next.
+
+    The criss-cross cores feed the local-attention and FAM branches, whose
+    ReLUs follow train-mode BatchNorms.  Two steps whose attention outputs
+    differ by rounding can then put an element near 0 on either side of a
+    ReLU, and one such flip in ``local_attention_*.dconv2`` (216 elements a
+    channel at 1280x720, batch 6) moves its BatchNorm bias's gradient by
+    about 1e-2 of its norm: a different linear piece, not a kernel's error.
+    Inside ``pinned()`` the first step records every decoder ReLU's mask
+    (``x > 0``) and returns ``F.relu(x)`` unchanged; after ``replay()`` the
+    next step applies the recorded masks (``x * mask``), so that both take
+    the gradient of the same piece, and ``flips`` counts the elements whose
+    sign differed."""
+
+    def __init__(self):
+        self.masks, self.at, self.flips, self.replaying = [], 0, 0, False
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.replaying:
+            self.masks.append(x.detach() > 0)
+            return torch.nn.functional.relu(x)
+        mask = self.masks[self.at]
+        self.at += 1
+        self.flips += int(((x.detach() > 0) != mask).sum())
+        return x * mask.to(x.dtype)
+
+    def replay(self) -> None:
+        self.at, self.flips, self.replaying = 0, 0, True
+
+    def pinned(self):
+        stack = contextlib.ExitStack()
+        stack.enter_context(mock.patch.object(gcpa, "relu", self))
+        stack.enter_context(mock.patch.object(torch.nn.ReLU, "forward",
+                                              lambda module, x: self(x)))
+        return stack
+
+
+def _kernels_vs_plain_grads(segmentor, loss_fn, x, label) -> dict:
+    """One train-mode step's gradients with kernels #1 and #2 against the same
+    step with the plain core: per leaf (``_worst_leaf``) as the steps run,
+    and again with the plain step on the kernel step's ReLU masks
+    (``_ReluPins``), which is what ``GRAD_TOLERANCE`` holds; and the spread of
+    the same kernel step run twice."""
+    pins = _ReluPins()
+    with pins.pinned():
+        loss_k, grads_k = _one_step_grads(segmentor, loss_fn, x, label)
+    with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
+        before_plain = ccattn.KERNEL_LAUNCHES
+        loss_p, grads_p = _one_step_grads(segmentor, loss_fn, x, label)
+        pins.replay()
+        with pins.pinned():
+            loss_pinned, grads_pinned = _one_step_grads(segmentor, loss_fn, x, label)
+        if ccattn.KERNEL_LAUNCHES != before_plain:
+            raise AssertionError("the plain-core step launched the kernel")
+    if pins.at != len(pins.masks):
+        raise AssertionError(f"the plain step met {pins.at} decoder ReLUs, the kernel step "
+                             f"{len(pins.masks)}")
+    _, grads_k2 = _one_step_grads(segmentor, loss_fn, x, label)
+    return {"loss_k": loss_k, "loss_p": loss_p, "loss_pinned": loss_pinned,
+            "free": _worst_leaf(grads_k, grads_p), "pinned": _worst_leaf(grads_k, grads_pinned),
+            "noise": _worst_leaf(grads_k2, grads_k), "flips": pins.flips,
+            "relus": len(pins.masks), "masked": sum(m.numel() for m in pins.masks),
+            "leaves": len(grads_p)}
+
+
 def _report_steps(tag: str, trainer, card: str, peak_mib: float, batch: int = 0) -> float:
     """Logs ms a step (the median after the first, which warms cuDNN up),
     images/s (``batch`` images a step, SOLVER.BATCH_SIZE by default), the
@@ -1376,20 +1484,19 @@ def phase_train(tmp: str, card: str):
 
     # one step's gradients: the kernels against the same step with the plain core
     loss_fn = make_family_loss(trainer.spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
-    loss_k, grads_k = _one_step_grads(segmentor, loss_fn, x, label)
-    with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
-        before_plain = ccattn.KERNEL_LAUNCHES
-        loss_p, grads_p = _one_step_grads(segmentor, loss_fn, x, label)
-        if ccattn.KERNEL_LAUNCHES != before_plain:
-            raise AssertionError("the plain-core step launched the kernel")
-    _, grads_k2 = _one_step_grads(segmentor, loss_fn, x, label)
-    worst, worst_name = _worst_leaf(grads_k, grads_p)
-    noise, noise_name = _worst_leaf(grads_k2, grads_k)
+    grads = _kernels_vs_plain_grads(segmentor, loss_fn, x, label)
+    (free, free_name), (worst, worst_name) = grads["free"], grads["pinned"]
+    noise, noise_name = grads["noise"]
+    loss_k, loss_p = grads["loss_k"], grads["loss_pinned"]
     log(f"[train] one step, kernels vs plain core: loss {loss_k:.6f} vs {loss_p:.6f}; "
-        f"worst gradient leaf {worst_name} off by {worst:.3e} of its norm (tolerance "
-        f"{GRAD_TOLERANCE:g}, {len(grads_p)} leaves); the same step twice with the "
-        f"kernels differs by {noise:.3e} at {noise_name}")
-    if worst > GRAD_TOLERANCE or abs(loss_k - loss_p) > 1e-4 * abs(loss_p):
+        f"on the kernel step's masks of the {grads['relus']} decoder ReLUs the worst "
+        f"gradient leaf {worst_name} is off by {worst:.3e} of its norm (tolerance "
+        f"{GRAD_TOLERANCE:g}, {grads['leaves']} leaves); with its own masks the plain step "
+        f"flips {grads['flips']} of {grads['masked']} ReLU elements and its worst leaf "
+        f"{free_name} is off by {free:.3e}; the same step twice with the kernels differs "
+        f"by {noise:.3e} at {noise_name}")
+    if (worst > GRAD_TOLERANCE or abs(loss_k - loss_p) > 1e-4 * abs(loss_p)
+            or abs(loss_k - grads["loss_p"]) > 1e-4 * abs(loss_p)):
         raise AssertionError(f"gradients disagree with the plain-core step: {worst_name} "
                              f"{worst}")
     return fwd_launches, bwd_launches
@@ -4040,11 +4147,582 @@ def phase_inference_cli(tmp: str, card: str) -> int:
     return _check_no_kernel("inference_cli")
 
 
+
+# -- data parallelism, async checkpoints, the native decoder, the TPU recipes --------
+
+DIST_DEEPLAB_STEPS = 4
+# the world of two on one card: GALD at 1024x512, 2 images a rank, 3 steps,
+# float32 (TF32 off), against one process taking all 4
+DIST_GALD_GEOMETRY = ((SERVE_W, SERVE_H), 4, 3)
+# tolerances stated before the first run: the losses of the world of two
+# against the one process 1e-3 relative at the first step and 1e-2 after
+# three; the weights' displacement over all leaves 5e-2 of its norm (Adam
+# moves an element whose gradient is rounding noise by a whole lr); the
+# BatchNorm running statistics 1e-2 of their magnitude.  Train-mode GALD is
+# badly conditioned (its float32 and float64 gradients differ by up to 26%
+# of a leaf), and the ranks' BatchNorm takes its variance as E[x^2] - E[x]^2.
+# The first run on the card met the losses (3.4e-7 and 4.9e-4) but not the
+# weights (1.4e-1) or the statistics (9.5e-2): so the weights and statistics
+# are also held to what rounding alone does to this run, the one process
+# against itself with its images scaled by 1 + 2^-20 (PERTURB), at
+# DIST_GALD_NOISE_FACTOR times that
+DIST_GALD_TOLERANCE = {"first_loss": 1e-3, "loss": 1e-2, "weights": 5e-2, "stats": 1e-2}
+PERTURB = 1.0 + 2.0 ** -20
+DIST_GALD_NOISE_FACTOR = 3.0
+DIST_DEEPLAB_LOSS_TOLERANCE = 1e-2   # bfloat16, cuDNN's nondeterministic reductions
+DIST_EVAL_IMAGES = 11                 # two ranks leave one out under process_shard
+DIST_WORLD_TIMEOUT_S = 300
+ASYNC_EPOCHS, ASYNC_STEPS = 3, 2
+RECIPES = ("attn_src_kvasir_tpu.yaml", "deeplabv2_r101_src_kvasir_tpu.yaml",
+           "gald_src_tpu.yaml", "pranet_src_polyp_tpu.yaml")
+# polyp items: the attn recipe's batch of 128 needs 256 for two batches
+RECIPE_POLYP_ITEMS = 256
+# deeplabv2_r101_src_kvasir_tpu.yaml reads kvasir_train, whose frames go to
+# the collate at their own sizes (DEVICE_AUG's host stub crops nothing at
+# INPUT_SCALES_TRAIN (1, 1)): frames of two sizes cannot be batched, in either
+# package (ROADMAP Queue 3), so its tree holds frames of one Kvasir-SEG size
+RECIPE_KVASIR_FRAME = (1280, 1024)
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_world(case: str, out_dir: str, *args: str, world: int = 2) -> list:
+    """``world`` processes of this script (``--dist-worker``), each a rank of a
+    gloo group on the one card (NCCL takes one rank a device); each writes
+    its results to ``<out_dir>/<case>_rank<r>.json``.  Every process is
+    killed when the world outlives DIST_WORLD_TIMEOUT_S, and a rank that
+    fails raises here with its output."""
+    os.makedirs(out_dir, exist_ok=True)
+    port = str(_free_port())
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dist-worker",
+                               case, str(r), str(world), port, out_dir, *args],
+                              cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for r in range(world)]
+    deadline = time.monotonic() + DIST_WORLD_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.monotonic(), 1.0))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines()[-8:]:
+            log(f"[{case} rank {r}] {line}")
+        if p.returncode != 0:
+            raise RuntimeError(f"rank {r} of the {case} world exited {p.returncode}:\n"
+                               f"{out[-6000:]}")
+    return [load_json(os.path.join(out_dir, f"{case}_rank{r}.json")) for r in range(world)]
+
+
+def _gald_dist_opts(out_dir: str, *more):
+    (w, h), batch, steps = DIST_GALD_GEOMETRY
+    return ["-cfg", os.path.join(HERE, "configs", "gald_src.yaml"),
+            "DATASETS.SOURCE_TRAIN", "synthetic_train", "INPUT.SOURCE_INPUT_SIZE_TRAIN",
+            f"({w}, {h})", "SOLVER.BATCH_SIZE", str(batch), "DATASETS.SYNTHETIC_LENGTH",
+            str(batch * steps), "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "5",
+            *FLOAT32, "OUTPUT_DIR", out_dir, *more]
+
+
+def _gald_dist_run(out_dir: str, *more, scale: float = 1.0):
+    """The GALD trainer of ``_gald_dist_opts`` from seed 0, trained with the
+    kernel counts set to 0 just before, its images times ``scale``:
+    (trainer, counts, peak MiB)."""
+    cfg = load_cfg(train_src.build_parser().parse_args(_gald_dist_opts(out_dir, *more)))
+    trainer = train_src.make_trainer("gald", cfg, logger=_stderr_logger("chip_smoke.dist_gald"))
+    randomize_weights_(trainer.segmentor, seed=0)
+    if scale != 1.0:
+        step = trainer.step_fn
+        trainer.step_fn = lambda batch, epoch0: step(
+            {**batch, "image": batch["image"] * scale}, epoch0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_kernel_counts()
+    trainer.train()
+    torch.cuda.synchronize()
+    counts = [getattr(m, n) for m, n in KERNEL_COUNTERS]
+    return trainer, counts, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def worker_gald(rank: int, out_dir: str) -> dict:
+    trainer, counts, peak = _gald_dist_run(os.path.join(out_dir, f"rank{rank}"),
+                                           "DIST.INITIALIZE", "True")
+    torch.save({k: v.detach().cpu() for k, v in trainer.segmentor.state_dict().items()},
+               os.path.join(out_dir, f"gald_rank{rank}.pth"))
+    return {"losses": list(trainer.loss_data), "counts": counts, "peak_mib": peak,
+            "step_ms": float(np.median(trainer.meters.meters["time"].series[1:])) * 1e3,
+            "local_batch": len(next(iter(trainer.train_loader))["name"])}
+
+
+def _dist_eval_opts(out_dir: str, pth: str, images: int, *more):
+    return _deeplab_opts(out_dir, "DATASETS.SYNTHETIC_LENGTH", str(images),
+                         "TEST.BATCH_SIZE", "4", "resume", pth, *more)
+
+
+def worker_eval(rank: int, out_dir: str, pth: str) -> dict:
+    """``cli.test``'s Tester on DIST_EVAL_IMAGES images in the world, then
+    again under TEST.QUANT int8."""
+    out = {}
+    render = load_json(os.path.join(HERE, "renders", "cityscapes.json"))
+    for tag, quant in (("float32", "none"), ("int8", "int8")):
+        args = test_cli.build_parser().parse_args(["-c", "renders/cityscapes.json"] + _dist_eval_opts(
+            os.path.join(out_dir, tag), pth, DIST_EVAL_IMAGES, "DIST.INITIALIZE", "True",
+            "TEST.QUANT", quant))
+        tester = test_cli.make_tester(load_cfg(args), render)
+        t0 = time.perf_counter()
+        summary = tester.test()
+        out[tag] = {"summary": summary, "confusion": np.asarray(tester.confusion).tolist(),
+                    "report": getattr(tester, "quant_report", {}),
+                    "seconds": time.perf_counter() - t0,
+                    "images": len(tester.test_loader.dataset) // 2}
+        tester.test_loader.close()
+    return out
+
+
+def dist_worker(argv) -> int:
+    """One rank of ``_run_world``: a gloo group on the card, the case, its
+    results as JSON.  Prints no result line."""
+    case, rank, world, port, out_dir, *args = argv
+    rank, world = int(rank), int(world)
+    import torch.distributed as dist
+
+    resolve_device("cuda")
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=world)
+    try:
+        result = {"gald": worker_gald, "eval": worker_eval}[case](rank, out_dir, *args)
+        with open(os.path.join(out_dir, f"{case}_rank{rank}.json"), "w") as f:
+            json.dump(result, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_dist_deeplab(tmp: str, card: str) -> dict:
+    """configs/deeplabv2_r101_src.yaml in bfloat16, 4 steps of 6 at 1280x720
+    through ``cli.train_src``, without DIST and then with DIST.INITIALIZE in
+    a world of one over NCCL (the ``env://`` variables set here, the group
+    ended after): the loss series within DIST_DEEPLAB_LOSS_TOLERANCE, ms a
+    step and peak memory of each."""
+    import torch.distributed as dist
+
+    from rnd_semantic_segmentation_torch.parallel import world_size
+
+    runs = {}
+    for tag, more in (("plain", ()), ("dist", ("DIST.INITIALIZE", "True"))):
+        env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": str(_free_port())} if more else {}
+        with mock.patch.dict(os.environ, env):
+            trainer = _synthetic_trainer(f"dist_deeplab_{tag}", tmp, "deeplabv2_r101_src.yaml",
+                                         "deeplab", DIST_DEEPLAB_STEPS, "MODEL.DTYPE",
+                                         "bfloat16", *more)
+            try:
+                if more and not (dist.is_initialized() and dist.get_backend() == "nccl"
+                                 and world_size() == 1):
+                    raise AssertionError("DIST.INITIALIZE started no NCCL world of one")
+                runs[tag] = _timed_train(f"dist_deeplab_{tag}", trainer, card)
+            finally:
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+        _check_no_kernel(f"dist_deeplab_{tag}")
+    plain, dist_ = runs["plain"], runs["dist"]
+    err = max(abs(a - b) / abs(b) for a, b in zip(dist_["losses"], plain["losses"]))
+    log(f"[dist_deeplab] on {card}: NCCL world of one {dist_['ms']:.1f} ms a step, peak "
+        f"{dist_['peak_mib']:.0f} MiB; without DIST {plain['ms']:.1f} ms, "
+        f"{plain['peak_mib']:.0f} MiB; the losses agree to {err:.2e} relative "
+        f"(tolerance {DIST_DEEPLAB_LOSS_TOLERANCE})")
+    if err > DIST_DEEPLAB_LOSS_TOLERANCE:
+        raise AssertionError(f"the loss series differ by {err:.2e}")
+    MEASURED["dist_deeplab"] = {k: (v["ms"], v["peak_mib"]) for k, v in runs.items()}
+    return runs
+
+
+def phase_dist_gald_2rank(tmp: str, card: str):
+    """Two processes on the one card over gloo (``_run_world``), each a rank
+    of ``cli.train_src``'s GALD trainer with DIST.INITIALIZE, 2 images at
+    1024x512 a rank for 3 steps, against this process taking all 4: the
+    losses, the weights and the BatchNorm buffers after 3 steps within
+    DIST_GALD_TOLERANCE; kernels #1 and #2 launch twice a step in each rank.
+    Returns the launches of #1 and #2 over both ranks."""
+    out_dir = os.path.join(tmp, "dist_gald_2rank")
+    t0 = time.perf_counter()
+    ranks = _run_world("gald", out_dir)
+    world_s = time.perf_counter() - t0
+    one, counts, peak = _gald_dist_run(os.path.join(out_dir, "one"))
+    (_, _), batch, steps = DIST_GALD_GEOMETRY
+    want = {n: v.detach().cpu() for n, v in one.segmentor.state_dict().items()}
+    nudged = {n: v.detach().cpu() for n, v in _gald_dist_run(
+        os.path.join(out_dir, "nudged"), scale=PERTURB)[0].segmentor.state_dict().items()}
+    start = Segmentor(build_segmentor(one.cfg), one.cfg.MODEL.NUM_CLASSES)
+    randomize_weights_(start, seed=0)
+    start = start.state_dict()
+    got = [torch.load(os.path.join(out_dir, f"gald_rank{r}.pth"), weights_only=True)
+           for r in range(2)]
+    for name in want:
+        if not torch.equal(got[0][name], got[1][name]):
+            raise AssertionError(f"the ranks hold different {name}")
+    params = [n for n, _ in one.segmentor.named_parameters()]
+
+    def apart(state):
+        """(displacement error over all leaves, worst running statistic) of
+        ``state`` against the one process."""
+        disp = _global_rel({n: state[n] - start[n] for n in params},
+                           {n: want[n] - start[n] for n in params})
+        stats = max((state[n] - v).abs().max().item() / max(v.abs().max().item(), 1e-12)
+                    for n, v in want.items() if "running" in n)
+        return disp, stats
+
+    disp, stats = apart(got[0])
+    noise_disp, noise_stats = apart(nudged)
+    losses = [r["losses"] for r in ranks]
+    first = abs(losses[0][0] - one.loss_data[0]) / abs(one.loss_data[0])
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses[0], one.loss_data))
+    fwd = sum(r["counts"][0] for r in ranks)
+    bwd = sum(r["counts"][1] for r in ranks)
+    log(f"[dist_gald_2rank] on {card}: 2 ranks over gloo, {ranks[0]['local_batch']} images "
+        f"a rank at {DIST_GALD_GEOMETRY[0][0]}x{DIST_GALD_GEOMETRY[0][1]}, {steps} steps "
+        f"({world_s:.1f} s for the world, start-up included); a rank "
+        f"{ranks[0]['step_ms']:.1f} ms a step, peak {ranks[0]['peak_mib']:.0f} MiB; one "
+        f"process of {batch}: {float(np.median(one.meters.meters['time'].series[1:])) * 1e3:.1f}"
+        f" ms a step, peak {peak:.0f} MiB; losses {[round(v, 5) for v in losses[0]]} against "
+        f"{[round(v, 5) for v in one.loss_data]} (first {first:.2e}, worst {worst:.2e}); "
+        f"weights' displacement {disp:.2e} of its norm, BatchNorm statistics {stats:.2e} "
+        f"(the one process against itself with its images times 1 + 2^-20: {noise_disp:.2e}, "
+        f"{noise_stats:.2e}); "
+        f"launches per rank (cc fwd, cc bwd, mbconv) {[r['counts'] for r in ranks]}, one "
+        f"process {counts}")
+    tol = DIST_GALD_TOLERANCE
+    factor = DIST_GALD_NOISE_FACTOR
+    if (losses[0] != losses[1] or first > tol["first_loss"] or worst > tol["loss"]
+            or disp > max(tol["weights"], factor * noise_disp)
+            or stats > max(tol["stats"], factor * noise_stats)):
+        raise AssertionError("the world of two disagrees with the one process beyond "
+                             f"{DIST_GALD_TOLERANCE} and {factor} times rounding's effect")
+    if any(r["counts"][:2] != [2 * steps, 2 * steps] or r["counts"][2] for r in ranks):
+        raise AssertionError("kernels #1 and #2 must launch twice a step in each rank")
+    MEASURED["dist_gald_2rank"] = {"rank_ms": ranks[0]["step_ms"], "disp": disp,
+                                   "noise": noise_disp}
+    return fwd, bwd
+
+
+def phase_dist_eval(tmp: str, card: str) -> int:
+    """``cli.test`` with two ranks on the card over gloo against this process
+    on the same first 10 of DIST_EVAL_IMAGES synthetic images (the
+    DeepLab-R101 checkpoint at 1024x512, TEST.BATCH_SIZE 4: each rank's last
+    batch is short): the confusion matrices agree on MIN_MASK_AGREEMENT of
+    the pixels and the micro mIoU within 1e-3 (the CPU test holds them
+    equal), image 10 left out and named in the log; TEST.QUANT int8 under
+    two ranks runs in float32 with the reason ``multiprocess``."""
+    pth = _deeplab_checkpoint(tmp)
+    out_dir = os.path.join(tmp, "dist_eval")
+    _zero_kernel_counts()
+    ranks = _run_world("eval", out_dir, pth)
+    args = test_cli.build_parser().parse_args(
+        ["-c", "renders/cityscapes.json"] + _dist_eval_opts(os.path.join(out_dir, "one"), pth,
+                                                             DIST_EVAL_IMAGES - 1))
+    tester = test_cli.make_tester(load_cfg(args), load_json(os.path.join(
+        HERE, "renders", "cityscapes.json")), logger=_stderr_logger("chip_smoke.dist_eval"))
+    t0 = time.perf_counter()
+    summary = tester.test()
+    one_s = time.perf_counter() - t0
+    tester.test_loader.close()
+    log_path = os.path.join(out_dir, "float32", "aspp_cityscapes_test.txt")
+    left = [line for line in open(log_path) if "leaves out" in line] if os.path.exists(
+        log_path) else []
+    f32, q = ranks[0]["float32"], ranks[0]["int8"]
+    # the ranks forward 2 images a batch, the one process 4: cuDNN sums in
+    # another order at another batch size, which moves near-tied pixels (the
+    # CPU test holds the two equal); so the pixels counted alike, as the
+    # served masks are held (MIN_MASK_AGREEMENT)
+    one_cmt = np.asarray(tester.confusion)
+    agreement = [1.0 - np.abs(np.asarray(r["float32"]["confusion"]) - one_cmt).sum()
+                 / (2.0 * one_cmt.sum()) for r in ranks]
+    miou_gap = abs(f32["summary"]["micro_miou"] - summary["micro_miou"])
+    log(f"[dist_eval] on {card}: 2 ranks over gloo, {f32['images']} images a rank, "
+        f"{f32['seconds']:.1f} s for a rank's pass; one process on the same "
+        f"{DIST_EVAL_IMAGES - 1}: {one_s:.1f} s; confusion matrices agree on "
+        f"{min(agreement):.6f} of the pixels ({int(one_cmt.sum())}), micro mIoU "
+        f"{f32['summary']['micro_miou']:.5f} against {summary['micro_miou']:.5f}; log: "
+        f"{left[0].strip() if left else 'no line'}; TEST.QUANT int8 over 2 ranks: "
+        f"{q['report']}")
+    if (ranks[0]["float32"]["confusion"] != ranks[1]["float32"]["confusion"]
+            or min(agreement) < MIN_MASK_AGREEMENT or miou_gap > 1e-3):
+        raise AssertionError("the two-rank eval differs from one process")
+    if not left or "synthetic_00010" not in left[0]:
+        raise AssertionError("the image left out is not named in the log")
+    if q["report"].get("reason") != "multiprocess" or q["report"].get("mode") != "none" \
+            or q["confusion"] != f32["confusion"]:
+        raise AssertionError(f"TEST.QUANT int8 under two ranks: {q['report']}")
+    return _check_no_kernel("dist_eval")
+
+
+def phase_async_ckpt(tmp: str, card: str) -> dict:
+    """configs/deeplabv2_r101_src.yaml in bfloat16, CHECKPOINT_PERIOD 1, 3
+    epochs of 2 steps of 6 at 1280x720, KEEP_CHECKPOINTS 2, with the file
+    written in the step's thread and then by the background writer: ms the
+    loop waited at each save and the bytes written; only the last 2 files
+    remain; the last background file loads equal to a synchronous save of
+    the same state; ``resume latest`` waits for a write in flight."""
+    from rnd_semantic_segmentation_torch.ckpt.async_writer import AsyncCheckpointWriter
+    from rnd_semantic_segmentation_torch.ckpt.checkpoint_io import save_checkpoint
+
+    runs = {}
+    for mode in ("False", "True"):
+        tag = f"async_ckpt_{'async' if mode == 'True' else 'sync'}"
+        trainer = _synthetic_trainer(tag, tmp, "deeplabv2_r101_src.yaml", "deeplab",
+                                     ASYNC_STEPS, "MODEL.DTYPE", "bfloat16",
+                                     "SOLVER.EPOCHS", str(ASYNC_EPOCHS),
+                                     "SOLVER.CHECKPOINT_PERIOD", "1",
+                                     "SOLVER.KEEP_CHECKPOINTS", "2",
+                                     "SOLVER.ASYNC_CHECKPOINT", mode)
+        _zero_kernel_counts()
+        t0 = time.perf_counter()
+        trainer.train()
+        seconds = time.perf_counter() - t0
+        _check_no_kernel(tag)
+        out = trainer.cfg.OUTPUT_DIR
+        files = sorted(f for f in os.listdir(out) if f.endswith(".pth"))
+        sizes = [os.path.getsize(os.path.join(out, f)) for f in files]
+        runs[mode] = trainer
+        log(f"[async_ckpt] {tag} on {card}: the loop waited "
+            f"{[round(ms, 1) for ms in trainer.save_blocked_ms]} ms at its 3 saves; "
+            f"{seconds:.1f} s for the run; files {files}, {sizes} bytes")
+        if files != ["Aspp-2.pth", "Aspp-3.pth"]:
+            raise AssertionError(f"{tag}: {files} remain, want the last 2")
+    trainer = runs["True"]
+    out = trainer.cfg.OUTPUT_DIR
+    sync = save_checkpoint(os.path.join(out, "sync-3.pth.ref"), trainer.ckpt_modules,
+                           trainer.state, ASYNC_EPOCHS)
+    a = torch.load(os.path.join(out, "Aspp-3.pth"), map_location="cpu", weights_only=True)
+    b = torch.load(sync, map_location="cpu", weights_only=True)
+    same = all(torch.equal(a[p][k], b[p][k]) for p in trainer.ckpt_modules for k in b[p])
+    writer = AsyncCheckpointWriter()
+    save_checkpoint(os.path.join(out, "Aspp-4.pth"), trainer.ckpt_modules, trainer.state, 4,
+                    writer=writer)
+    t0 = time.perf_counter()
+    resumed = train_src.make_trainer("deeplab", load_cfg(train_src.build_parser().parse_args(
+        ["-cfg", os.path.join(HERE, "configs", "deeplabv2_r101_src.yaml"),
+         "DATASETS.SOURCE_TRAIN", "synthetic_train", "DATASETS.SYNTHETIC_LENGTH", "6",
+         "OUTPUT_DIR", out, "resume", "latest"])), logger=_stderr_logger("chip_smoke.async"))
+    resume_s = time.perf_counter() - t0
+    writer.close()
+    log(f"[async_ckpt] the background Aspp-3.pth loads equal to a synchronous save of the "
+        f"same state: {same}; resume latest with Aspp-4.pth in flight: start epoch "
+        f"{resumed.start_epoch} after {resume_s:.1f} s (trainer build included)")
+    if not same or resumed.start_epoch != 5:
+        raise AssertionError("the background file differs, or resume latest did not wait")
+    resumed.train_loader.close()
+    MEASURED["async_ckpt"] = {m: list(t.save_blocked_ms) for m, t in runs.items()}
+    return runs
+
+
+def phase_native_decode(tmp: str, card: str) -> bool:
+    """The native decoder built on this machine (``native/segdata.cpp`` with
+    libjpeg and libpng).  Where it builds: ms an item of a GTA5 PNG
+    (1914x1052), a Cityscapes PNG and a Kvasir-size JPEG (the BLI images),
+    native against PIL on one core, and configs/attn_src_kvasir.yaml with
+    DEVICE_AUG and N worker processes with NATIVE_DECODE off and on, one
+    epoch of 6 steps of 20 from files each.  Where it does not: the port
+    must raise with the compiler's message, from the decoder and from
+    ``build_dataset``.  Returns whether the decoder built."""
+    from rnd_semantic_segmentation_torch.data import build_dataset, native_decode
+
+    root = _data_root(tmp)
+    try:
+        native_decode.load_library()
+    except RuntimeError as err:
+        message = str(err)
+        cfg = load_cfg(train_src.build_parser().parse_args(
+            ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir_tpu.yaml"),
+             "DATASETS.DATASET_DIR", root]))
+        try:
+            build_dataset(cfg, "train")
+        except RuntimeError as again:
+            raised = str(again)
+        else:
+            raise AssertionError("build_dataset under NATIVE_DECODE did not raise")
+        log(f"[native_decode] on {card}: the decoder does not build on this machine; the "
+            f"port raises, from the decoder and from build_dataset: "
+            f"{' | '.join(message.strip().splitlines()[:3])}")
+        if "failed" not in raised and "cannot" not in raised:
+            raise AssertionError(f"build_dataset raised without the compiler's message: {raised}")
+        MEASURED["native_decode"] = None
+        return False
+    items = {"gta5 PNG": glob_first(root, "gta5/fold1/images"),
+             "cityscapes PNG": glob_first(root, "cityscapes/leftImg8bit/train/aachen"),
+             "kvasir-size JPEG": glob_first(root, "BLI/train/images")}
+    from PIL import Image
+    timings = {}
+    for name, path in items.items():
+        native_ms = host_ms(lambda: native_decode.decode(path), reps=5)
+        pil_ms = host_ms(lambda: np.asarray(Image.open(path).convert("RGB")), reps=5)
+        if not np.array_equal(native_decode.decode(path),
+                              np.asarray(Image.open(path).convert("RGB"))) and "PNG" in name:
+            raise AssertionError(f"{name}: native decode differs from PIL")
+        timings[name] = (native_ms, pil_ms)
+    log(f"[native_decode] on {card}: ms an item on one core, native against PIL: " + "; ".join(
+        f"{k} {a:.1f} vs {b:.1f}" for k, (a, b) in timings.items()))
+    results = {}
+    for native_on in ("False", "True"):
+        out_dir = os.path.join(tmp, f"native_decode_{native_on}")
+        cfg = load_cfg(train_src.build_parser().parse_args(
+            ["-cfg", os.path.join(HERE, "configs", "attn_src_kvasir.yaml"),
+             "DATASETS.DATASET_DIR", root, "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "5",
+             "DATA_PIPE.WORKER_PROCESSES", str(_loader_procs()), "DATA_PIPE.DEVICE_AUG", "True",
+             "DATA_PIPE.NATIVE_DECODE", native_on, "OUTPUT_DIR", out_dir]))
+        trainer = train_src.make_trainer("attn", cfg, logger=_stderr_logger(
+            "chip_smoke.native_decode"))
+        try:
+            randomize_weights_(trainer.segmentor, seed=0)
+            trainer.train()
+        finally:
+            trainer.train_loader.close()
+        step_ms = float(np.median(trainer.meters.meters["time"].series[1:])) * 1e3
+        results[native_on] = (cfg.SOLVER.BATCH_SIZE / step_ms * 1e3, _data_share(trainer))
+    log(f"[native_decode] attn_src_kvasir.yaml with DEVICE_AUG and {_loader_procs()} worker "
+        f"processes from files: NATIVE_DECODE off {results['False'][0]:.2f} images/s, data "
+        f"share {results['False'][1]:.1%}; on {results['True'][0]:.2f} images/s, data share "
+        f"{results['True'][1]:.1%}")
+    MEASURED["native_decode"] = {"items": timings, "attn": results}
+    return True
+
+
+def glob_first(root: str, sub: str) -> str:
+    folder = os.path.join(root, sub)
+    return os.path.join(folder, sorted(os.listdir(folder))[0])
+
+
+def phase_recipes_tpu(tmp: str, card: str, native_built: bool = None) -> tuple:
+    """Each configs/*_tpu.yaml recipe through its train CLI from files, one
+    short epoch, with its async checkpoints, device augmentation, worker
+    processes and native decode as written; the overrides are the data
+    root, OUTPUT_DIR, SOLVER.EPOCHS 1 and CHECKPOINT_PERIOD 1, the pranet
+    readers' size (352 squared, as every PraNet phase: ROADMAP Queue 3),
+    DATA_PIPE.NATIVE_DECODE False where the decoder does not build here,
+    and MODEL.REMAT_BLOCKS True for a recipe that runs out of memory at its
+    batch (its own comment offers it).  The trees: 256 + 8 Kvasir-fold items
+    at Kvasir-SEG's sizes (attn, pranet), 24 + 2 Kvasir frames of one size
+    (deeplab: RECIPE_KVASIR_FRAME), data_files' GTA5 (gald).  Each reports
+    images/s, data share, peak memory and the checkpoint's wait; the GALD
+    recipe launches #1 and #2 twice a step.  Returns their launches."""
+    from rnd_semantic_segmentation_torch.data import native_decode
+    from rnd_semantic_segmentation_torch.data.trees import KVASIR_SIZES
+
+    if native_built is None:
+        try:
+            native_decode.load_library()
+            native_built = True
+        except RuntimeError:
+            native_built = False
+    gta_root = _data_root(tmp)
+    polyp_root = os.path.join(tmp, "recipes_polyp")
+    frame_root = os.path.join(tmp, "recipes_kvasir")
+    t0 = time.perf_counter()
+    write_dataset_trees(polyp_root, seed=1,
+                        trees={"kvasir": (RECIPE_POLYP_ITEMS, 8, KVASIR_SIZES)})
+    write_dataset_trees(frame_root, seed=2, trees={"kvasir": (24, 2, RECIPE_KVASIR_FRAME)})
+    log(f"[recipes_tpu] trees written in {time.perf_counter() - t0:.1f} s: "
+        f"{RECIPE_POLYP_ITEMS} + 8 Kvasir-fold items at {KVASIR_SIZES}, 24 + 2 Kvasir frames "
+        f"at {RECIPE_KVASIR_FRAME}")
+    roots = {"attn_src_kvasir_tpu.yaml": polyp_root, "pranet_src_polyp_tpu.yaml": polyp_root,
+             "deeplabv2_r101_src_kvasir_tpu.yaml": frame_root, "gald_src_tpu.yaml": gta_root}
+    launches = [0, 0, 0]
+    for config in RECIPES:
+        family = config.split("_")[0].replace("deeplabv2", "deeplab")
+        out_dir = os.path.join(tmp, "recipes", config[:-5])
+        opts = ["-cfg", os.path.join(HERE, "configs", config), "DATASETS.DATASET_DIR",
+                roots[config], "OUTPUT_DIR", out_dir, "SOLVER.EPOCHS", "1",
+                "SOLVER.CHECKPOINT_PERIOD", "1"]
+        extra = []
+        if family == "pranet":
+            side = f"({PRANET_SIDE}, {PRANET_SIDE})"
+            extra += ["INPUT.SOURCE_INPUT_SIZE_TRAIN", side, "INPUT.TARGET_INPUT_SIZE_TRAIN", side]
+        if not native_built:
+            extra += ["DATA_PIPE.NATIVE_DECODE", "False"]
+        cfg = load_cfg(train_src.build_parser().parse_args(opts + extra))
+        written = (cfg.SOLVER.ASYNC_CHECKPOINT, cfg.DATA_PIPE.WORKER_PROCESSES,
+                   cfg.DATA_PIPE.DEVICE_AUG)
+        try:
+            result = _recipe_run(config, family, cfg, card)
+        except torch.cuda.OutOfMemoryError as err:
+            result, oom = None, str(err).splitlines()[0][:160]
+        if result is None:  # outside the handler, so that the failed run's tensors go
+            gc.collect()
+            torch.cuda.empty_cache()
+            log(f"[recipes_tpu] {config} ran out of memory at batch {cfg.SOLVER.BATCH_SIZE} "
+                f"({oom}); again with MODEL.REMAT_BLOCKS True, which the recipe's comment "
+                f"offers")
+            extra += ["MODEL.REMAT_BLOCKS", "True"]
+            cfg = load_cfg(train_src.build_parser().parse_args(opts + extra))
+            result = _recipe_run(config, family, cfg, card)
+        log(f"[recipes_tpu] {config} on {card}: overrides besides data, output and run "
+            f"length {extra or 'none'}; ASYNC_CHECKPOINT, WORKER_PROCESSES, DEVICE_AUG "
+            f"{written}; " + result["line"])
+        counts = result["counts"]
+        launches = [a + b for a, b in zip(launches, counts)]
+        steps = result["steps"]
+        if family == "gald" and counts != [2 * steps, 2 * steps, 0]:
+            raise AssertionError(f"the GALD recipe launched {counts} in {steps} steps")
+        if family != "gald" and any(counts):
+            raise AssertionError(f"a hand kernel ran in the {family} recipe: {counts}")
+        MEASURED.setdefault("recipes_tpu", {})[config] = result["numbers"]
+        torch.cuda.empty_cache()
+    return tuple(launches)
+
+
+def _recipe_run(config: str, family: str, cfg, card: str) -> dict:
+    trainer = train_src.make_trainer(family, cfg, logger=_stderr_logger(
+        f"chip_smoke.recipes_tpu", logging.WARNING))
+    try:
+        randomize_weights_(trainer.segmentor, seed=0)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        trainer.train()
+        torch.cuda.synchronize()
+        counts = [getattr(m, n) for m, n in KERNEL_COUNTERS]
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    finally:
+        trainer.train_loader.close()
+    if not trainer.loss_data or not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"{config}: losses {trainer.loss_data}")
+    files = sorted(f for f in os.listdir(cfg.OUTPUT_DIR) if f.endswith(".pth"))
+    if files != [f"{trainer.ckpt_prefix}-1.pth"]:
+        raise AssertionError(f"{config}: checkpoints {files}")
+    times = trainer.meters.meters["time"].series
+    batch = cfg.SOLVER.BATCH_SIZE
+    step_ms = float(np.median(times[1:] if len(times) > 1 else times)) * 1e3
+    share = _data_share(trainer) if len(times) > 1 else float("nan")
+    line = (f"{len(times)} batches of {batch} ({trainer.state.step} optimizer steps), "
+            f"{step_ms:.1f} ms a batch (median after the first), {batch / step_ms * 1e3:.2f} "
+            f"images/s, data share {share:.1%}, peak {peak_mib:.0f} MiB, the loop waited "
+            f"{[round(ms, 1) for ms in trainer.save_blocked_ms]} ms at its saves, "
+            f"{cfg.MODEL.DTYPE}; launches (cc fwd, cc bwd, mbconv) {counts}")
+    return {"line": line, "counts": counts, "steps": trainer.state.step,
+            "numbers": {"images_s": batch / step_ms * 1e3, "share": share, "peak": peak_mib,
+                        "wait_ms": list(trainer.save_blocked_ms)}}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
                         "(development aid: prints no result lines)")
-    only = [p for p in parser.parse_args(argv).phases.split(",") if p]
+    parser.add_argument("--dist-worker", nargs=argparse.REMAINDER, default=None,
+                        help="(internal) one rank of a world the dist phases start")
+    parsed = parser.parse_args(argv)
+    if parsed.dist_worker is not None:
+        return dist_worker(parsed.dist_worker)
+    only = [p for p in parsed.phases.split(",") if p]
     t0 = time.perf_counter()
     card = phase_device()
     phase_build()
@@ -4126,6 +4804,19 @@ def main(argv=None) -> int:
         exported = phase_export(tmp, card)
         torch.cuda.empty_cache()
         inference_cli_launches = phase_inference_cli(tmp, card)
+        torch.cuda.empty_cache()
+        phase_dist_deeplab(tmp, card)
+        torch.cuda.empty_cache()
+        dist_gald_fwd, dist_gald_bwd = phase_dist_gald_2rank(tmp, card)
+        torch.cuda.empty_cache()
+        dist_eval_launches = phase_dist_eval(tmp, card)
+        torch.cuda.empty_cache()
+        phase_async_ckpt(tmp, card)
+        torch.cuda.empty_cache()
+        native_built = phase_native_decode(tmp, card)
+        recipe_fwd, recipe_bwd, recipe_mbconv = phase_recipes_tpu(tmp, card, native_built)
+    dist_launches = {"launches_dist_deeplab": 0, "launches_dist_eval": dist_eval_launches,
+                     "launches_async_ckpt": 0}
     quant_launches = {"launches_quant_deeplab": quant_deeplab_launches,
                       "launches_inference_cli": inference_cli_launches}
     kernels = [{
@@ -4133,7 +4824,10 @@ def main(argv=None) -> int:
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_fwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
         "launches": (serve_launches + train_fwd_launches + fada_gald_fwd + online_gald_fwd
-                     + bf16_fwd + online_bf16_fwd + quant_gald_launches),
+                     + bf16_fwd + online_bf16_fwd + quant_gald_launches + dist_gald_fwd
+                     + recipe_fwd),
+        **dist_launches, "launches_dist_gald_2rank": dist_gald_fwd,
+        "launches_recipes_tpu": recipe_fwd,
         **quant_launches, "launches_quant_gald": quant_gald_launches, "launches_quant_attn": 0,
         "launches_export_gald_call": exported["gald_float32"]["cc_launches"],
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
@@ -4155,7 +4849,9 @@ def main(argv=None) -> int:
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_bwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
         "launches": (train_bwd_launches + fada_gald_bwd + online_gald_bwd + bf16_bwd
-                     + online_bf16_bwd),
+                     + online_bf16_bwd + dist_gald_bwd + recipe_bwd),
+        **dist_launches, "launches_dist_gald_2rank": dist_gald_bwd,
+        "launches_recipes_tpu": recipe_bwd,
         "launches_train": train_bwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_bwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
@@ -4172,7 +4868,8 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
         "launches": (eval_attn_launches + serve_attn_launches + fada_attn_launches
                      + bli_launches + online_polyp_launches + device_aug_launches
-                     + online_bf16_fused + quant_attn_launches),
+                     + online_bf16_fused + quant_attn_launches + recipe_mbconv),
+        **dist_launches, "launches_dist_gald_2rank": 0, "launches_recipes_tpu": recipe_mbconv,
         **quant_launches, "launches_quant_gald": 0, "launches_quant_attn": quant_attn_launches,
         "launches_export_attn_call": exported["attn_float32"]["mbconv_launches"],
         "launches_eval_attn": eval_attn_launches,

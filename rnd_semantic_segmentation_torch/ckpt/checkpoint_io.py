@@ -8,6 +8,12 @@ tensors and plain Python containers only, so it loads with
 ``torch.load(..., weights_only=True)``, and
 ``torch_import.load_reference_checkpoint`` reads the model parts of it for
 ``Tester`` and the server.
+
+``save_checkpoint(..., writer=...)`` hands the file to an
+``async_writer.AsyncCheckpointWriter`` (SOLVER.ASYNC_CHECKPOINT): the
+tensors are copied before it returns, the file is written in the
+background.  ``latest_checkpoint`` and ``load_checkpoint`` first wait for
+every write in flight in the process.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from torch import nn
 
 from ..train.state import TrainState
+from .async_writer import AsyncCheckpointWriter, wait_for_checkpoints, write_file
 from .torch_import import load_part
 
 OPTIMIZER_PREFIX = "optimizer_"
@@ -39,6 +46,7 @@ def _found(output_dir: str, prefix: str):
 
 
 def latest_checkpoint(output_dir: str, prefix: str) -> Optional[str]:
+    wait_for_checkpoints()
     found = _found(output_dir, prefix)
     return found[-1][1] if found else None
 
@@ -64,25 +72,27 @@ def _to_cpu(obj):
 
 
 def save_checkpoint(path: str, modules: Mapping[str, nn.Module], state: TrainState,
-                    epoch: int) -> str:
+                    epoch: int, writer: Optional[AsyncCheckpointWriter] = None) -> str:
     """Writes the file under a temporary name and renames it, so a run cut
-    during the save leaves no half-written checkpoint behind."""
+    during the save leaves no half-written checkpoint behind; with a
+    ``writer``, in its background thread, after the tensors were copied."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     ckpt = {"epoch": int(epoch), "step": int(state.step)}
     for name, module in modules.items():
-        ckpt[name] = _to_cpu(module.state_dict())
-        ckpt[OPTIMIZER_PREFIX + name] = _to_cpu(state.optimizers[name].state_dict())
-    tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save(ckpt, tmp)
-    os.replace(tmp, path)
-    return path
+        ckpt[name] = module.state_dict()
+        ckpt[OPTIMIZER_PREFIX + name] = state.optimizers[name].state_dict()
+    if writer is not None:
+        writer.submit(path, ckpt)
+        return path
+    return write_file(path, _to_cpu(ckpt))
 
 
 def load_checkpoint(path: str, modules: Mapping[str, nn.Module],
                     state: TrainState) -> int:
     """Restores the parts, their optimizers and the step counter in place;
     returns the epoch to start from (the saved one plus 1)."""
+    wait_for_checkpoints()
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     for name, module in modules.items():
         if name not in ckpt or OPTIMIZER_PREFIX + name not in ckpt:

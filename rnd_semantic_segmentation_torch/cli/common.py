@@ -12,7 +12,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     parser.add_argument("-cfg", "--config-file", default="", metavar="FILE",
                         help="path to config file", type=str)
     parser.add_argument("--local_rank", type=int, default=0,
-                        help="kept for reference CLI parity; unused on one device")
+                        help="the process's card under torch.distributed.launch; "
+                             "LOCAL_RANK wins when torchrun sets it")
     parser.add_argument("opts", help="Modify config options from the command line",
                         default=None, nargs=argparse.REMAINDER)
     return parser

@@ -14,12 +14,15 @@ step, and the target dataset is repeated 9 times, as in the reference, so
 that zipping the two streams does not cut the source's epoch short.  The run
 is named ``<family>_fada`` and writes ``{Prefix}Fada-{epoch}.pth``, which
 ``cli.test ... resume <file>`` evaluates.  Runs on the CUDA card unless
-``MODEL.DEVICE cpu`` is given.
+``MODEL.DEVICE cpu`` is given; under ``torchrun`` with DIST.INITIALIZE True,
+data parallel over the processes (each stream's global batch split over
+them).
 """
 
 from __future__ import annotations
 
 from ..data import DataLoader, build_collate_fn, build_dataset
+from ..parallel import initialize_distributed
 from ..train.trainer import FadaTrainer
 from .common import base_parser, load_cfg
 
@@ -44,6 +47,7 @@ def build_parser():
 
 
 def make_trainer(name: str, cfg, local_rank: int = 0, logger=None) -> FadaTrainer:
+    initialize_distributed(cfg, local_rank)
     src_data = build_dataset(cfg, "train", is_source=True)
     tgt_data = _Repeat(build_dataset(cfg, "train", is_source=False), 9)
     kwargs = dict(shuffle=True, drop_last=True, num_workers=cfg.DATA_PIPE.NUM_WORKERS,
@@ -51,7 +55,7 @@ def make_trainer(name: str, cfg, local_rank: int = 0, logger=None) -> FadaTraine
                   collate_fn=build_collate_fn(cfg), seed=cfg.DATA_PIPE.SEED)
     src_loader = DataLoader(src_data, batch_size=cfg.SOLVER.BATCH_SIZE // 2, **kwargs)
     tgt_loader = DataLoader(tgt_data, batch_size=cfg.SOLVER.BATCH_SIZE // 2, **kwargs)
-    return FadaTrainer(name, cfg, src_loader, tgt_loader, local_rank, logger=logger)
+    return FadaTrainer(name, cfg, src_loader, tgt_loader, logger=logger)
 
 
 def main(name: str, cfg, local_rank: int = 0) -> None:

@@ -34,7 +34,8 @@ raises ValueError for the pranet, attn and attnwrap families.  The online
 step reads neither SOLVER.GRAD_CLIP nor SOLVER.ACCUM_STEPS (pranet's 0.5
 clamp is absent), as the JAX step; pranet still takes three steps a batch at
 its rates, each image labelled at its rate's size.  Runs on the CUDA card
-unless ``MODEL.DEVICE cpu`` is given.
+unless ``MODEL.DEVICE cpu`` is given; under ``torchrun`` with DIST.INITIALIZE
+True, data parallel over the processes (``cli.train_src``'s trainer).
 """
 
 from __future__ import annotations

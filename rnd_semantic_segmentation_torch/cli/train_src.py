@@ -14,12 +14,19 @@ The model family (deeplab, gald, attn, attnwrap or pranet) comes from
 MODEL.NAME through the registry.  The pranet configs leave the size the
 Kvasir-fold and BLI readers resize to at its default, which the model
 cannot take: set it to TRAINSIZE squared.  Runs on the CUDA card unless ``MODEL.DEVICE cpu`` is
-given.
+given.  Data parallel over processes under ``torchrun`` with DIST.INITIALIZE
+True (NCCL on cards, gloo on the CPU; SOLVER.BATCH_SIZE is the global
+batch):
+
+    torchrun --nproc_per_node 2 -m rnd_semantic_segmentation_torch.cli.train_src \
+        -cfg configs/deeplabv2_r101_src.yaml DATASETS.SOURCE_TRAIN synthetic_train \
+        MODEL.DEVICE cpu DIST.INITIALIZE True
 """
 
 from __future__ import annotations
 
 from ..data import DataLoader, build_collate_fn, build_dataset
+from ..parallel import initialize_distributed
 from ..train.trainer import Trainer
 from .common import base_parser, load_cfg
 
@@ -29,6 +36,7 @@ def build_parser():
 
 
 def make_trainer(name: str, cfg, local_rank: int = 0, logger=None) -> Trainer:
+    initialize_distributed(cfg, local_rank)
     train_data = build_dataset(cfg, "train", is_source=True)
     train_loader = DataLoader(
         train_data,
@@ -40,7 +48,7 @@ def make_trainer(name: str, cfg, local_rank: int = 0, logger=None) -> Trainer:
         collate_fn=build_collate_fn(cfg),
         seed=cfg.DATA_PIPE.SEED,
     )
-    return Trainer(name, cfg, train_loader, local_rank, logger=logger)
+    return Trainer(name, cfg, train_loader, logger=logger)
 
 
 def main(name: str, cfg, local_rank: int = 0) -> None:

@@ -41,10 +41,16 @@ and SOLVER.BASE_LR_D and ADV_WEIGHT (the FADA step, like the JAX one, reads
 neither LR_METHOD, LR_BATCH_REF, WARMUP_ITERS, GRAD_CLIP nor ACCUM_STEPS,
 and the FADA trainer, like the JAX one, prunes no checkpoint and never
 recalibrates; the online distillation step, like the JAX one, reads neither
-GRAD_CLIP nor ACCUM_STEPS).  A knob whose counterpart is not ported yet
-raises NotImplementedError when it is set (MODEL.WEIGHTS,
-SOLVER.ASYNC_CHECKPOINT, DATA_PIPE.NATIVE_DECODE, DIST.*, DEBUG.CHECKIFY,
-and an Orbax directory as DISTILL.TEACHER).
+GRAD_CLIP nor ACCUM_STEPS).  Every trainer, the test CLI and the Tester also
+read DIST.INITIALIZE (data parallelism over processes started by
+``torchrun``, parallel/dist.py) and DIST.NUM_DEVICES (0 or the world size;
+another value raises ValueError), the trainers SOLVER.ASYNC_CHECKPOINT (the
+background checkpoint writer, ckpt/async_writer.py), and every dataset
+DATA_PIPE.NATIVE_DECODE (the libjpeg/libpng decoder, data/native_decode.py).
+A knob whose counterpart is not ported yet raises NotImplementedError when it
+is set (MODEL.WEIGHTS, DIST.SPATIAL_PARALLEL > 1, DEBUG.CHECKIFY,
+MODEL.S2D_MAX_CHANNELS > 0, MODEL.SUBPIXEL_DECONV, and an Orbax directory as
+DISTILL.TEACHER).
 The other keys belong to parts of the JAX package not yet ported and are kept
 so that their configs load.  The port trains in MODEL.DTYPE (the image cast
 to it, parameters, gradients and losses float32), as the JAX package does,

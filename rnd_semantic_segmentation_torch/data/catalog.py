@@ -14,8 +14,10 @@ DATASETS.SYNTHETIC_LENGTH images).
 ``build_dataset`` gives the reader of DATASETS.SOURCE_TRAIN or TARGET_TRAIN
 in train mode, and of DATASETS.TEST otherwise, with the ``Augmenter``'s
 transform; in test mode the reader's mode is the last word of the name
-(``cityscapes_train`` reads the train split).  DATA_PIPE.NATIVE_DECODE (the
-JAX package's libjpeg/libpng decoder) raises NotImplementedError.
+(``cityscapes_train`` reads the train split).  DATA_PIPE.NATIVE_DECODE
+sets the reader's ``use_native_decode``, as the JAX ``_apply_pipe_options``
+does, after loading the libjpeg/libpng decoder (``native_decode``), which
+raises when it cannot be built or loaded: there is no quiet fallback to PIL.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+from . import native_decode
 from .augment import Augmenter
 from .datasets import (
     BLIDataset,
@@ -110,15 +113,15 @@ class DatasetCatalog:
 
 def build_dataset(cfg, mode: str = "train", is_source: bool = True):
     assert mode in ("train", "val", "test")
-    if cfg.DATA_PIPE.NATIVE_DECODE:
-        raise NotImplementedError(
-            "DATA_PIPE.NATIVE_DECODE (the libjpeg/libpng decoder) is not ported yet; "
-            "the port decodes with PIL")
     transform = Augmenter(cfg, mode, is_source).build_transform()
     if mode == "train":
         name = cfg.DATASETS.SOURCE_TRAIN if is_source else cfg.DATASETS.TARGET_TRAIN
     else:
         name = cfg.DATASETS.TEST
     ds_mode = {"train": "train", "val": "val"}.get(mode) or name.split("_")[-1]
-    return DatasetCatalog.get(cfg, name, ds_mode, num_classes=cfg.MODEL.NUM_CLASSES,
-                              transform=transform, cross_val=cfg.DATASETS.CROSS_VAL)
+    dataset = DatasetCatalog.get(cfg, name, ds_mode, num_classes=cfg.MODEL.NUM_CLASSES,
+                                 transform=transform, cross_val=cfg.DATASETS.CROSS_VAL)
+    if cfg.DATA_PIPE.NATIVE_DECODE:
+        native_decode.load_library()
+        dataset.use_native_decode = True
+    return dataset

@@ -33,13 +33,17 @@ each label table:
 
 Remapped labels are float32 images (``remap_labels``); Kvasir-fold and BLI
 masks come out of a bilinear float32 resize, and the collate truncates every
-label to int32.  Decoding is PIL's (``DATA_PIPE.NATIVE_DECODE`` raises in
-``build_dataset``).  Every class keeps the reference's ``debug`` flag, which
-pins the index to 0.
+label to int32.  Images are decoded by PIL, or, when ``build_dataset`` set
+``use_native_decode`` (DATA_PIPE.NATIVE_DECODE), by the libjpeg/libpng
+decoder of ``native_decode``; a file it cannot decode goes through PIL,
+counted in ``native_fallbacks`` and logged, as the JAX package falls back.
+Labels are PIL's in both cases.  Every class keeps the reference's
+``debug`` flag, which pins the index to 0.
 """
 
 from __future__ import annotations
 
+import logging
 import os
 from glob import glob
 from typing import Dict, Tuple
@@ -47,6 +51,7 @@ from typing import Dict, Tuple
 import numpy as np
 from PIL import Image
 
+from . import native_decode
 from .augment import cv2_resize
 
 CITYSCAPES_ID_TO_TRAINID = {
@@ -100,6 +105,8 @@ class _Base:
     image_paths: list
     debug: bool = False
     transform = None
+    use_native_decode: bool = False  # set by build_dataset from DATA_PIPE.NATIVE_DECODE
+    native_fallbacks: int = 0        # files the native decoder refused, in this process
 
     def __len__(self) -> int:
         return len(self.image_paths)
@@ -107,8 +114,15 @@ class _Base:
     def _path(self, index: int) -> str:
         return self.image_paths[0 if self.debug else index]
 
-    @staticmethod
-    def _open_rgb(path: str) -> Image.Image:
+    def _open_rgb(self, path: str) -> Image.Image:
+        if self.use_native_decode:
+            arr = native_decode.decode(path)
+            if arr is not None:
+                return Image.fromarray(arr)  # uint8 [H,W,3]: mode RGB
+            self.native_fallbacks += 1
+            logging.getLogger(__name__).warning(
+                f"native decoder refused {path}; decoded with PIL "
+                f"({self.native_fallbacks} in this process)")
         return Image.open(path).convert("RGB")
 
     def _finish(self, image, label, name):

@@ -36,6 +36,10 @@ contrast, saturation, hue, each factor drawn per image.  The arithmetic is
 float32; the output image is cast last to ``dtype`` (float32 by default;
 ``make_device_augmenter`` passes MODEL.DTYPE, as the JAX augmenter does), and
 the label keeps its type.
+
+In a world of more than one process each rank draws for the global batch
+(``world`` times its rows) and keeps its own rows (``_rank_draws``), so a
+sample's draws do not depend on the number of ranks.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.dist import rank_rows, world_size
 from ..utils.device import compute_dtype
 from ..utils.seeding import mix_seed
 
@@ -318,6 +323,16 @@ def device_aug_active(cfg, mode: str = "train") -> bool:
     return bool(cfg.DATA_PIPE.DEVICE_AUG) and mode == "train"
 
 
+def _rank_draws(draw_fn, gen: torch.Generator, rows: int, *args) -> Dict:
+    """``draw_fn(gen, rows * world, *args)`` with every tensor cut to this
+    rank's ``rows`` rows."""
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return rank_rows(tree, rows)
+    return cut(draw_fn(gen, rows * world_size(), *args))
+
+
 def make_device_augmenter(cfg, is_source: bool = True):
     """``aug(batch, step) -> batch``: the pipeline of ``cfg.AUG.NAME`` on the
     batch's device, its draws from a generator seeded with
@@ -332,15 +347,15 @@ def make_device_augmenter(cfg, is_source: bool = True):
 
     if name == "pra":
         def impl(image, label, gen):
-            return augment_batch_pra(image, label, draw_pra(gen, image.shape[0]), dtype)
+            return augment_batch_pra(image, label, _rank_draws(draw_pra, gen, image.shape[0]),
+                                     dtype)
     elif name == "attn":
         aug = cfg.AUG
-        probs = dict(prob=aug.PROB, blur_prob=aug.BLUR_PROB, rotate_prob=aug.ROTATE_PROB,
-                     jitter_prob=aug.JITTER_PROB, flip_prob=aug.FLIP_PROB)
+        probs = (aug.PROB, aug.BLUR_PROB, aug.ROTATE_PROB, aug.JITTER_PROB, aug.FLIP_PROB)
 
         def impl(image, label, gen):
-            return augment_batch_attn(image, label, draw_attn(gen, image.shape[0], **probs),
-                                      dtype)
+            return augment_batch_attn(image, label,
+                                      _rank_draws(draw_attn, gen, image.shape[0], *probs), dtype)
     else:  # aspp's pipeline, also for AUG.NAME gald and none
         inp = cfg.INPUT
         w, h = inp.SOURCE_INPUT_SIZE_TRAIN if is_source else inp.TARGET_INPUT_SIZE_TRAIN
@@ -349,7 +364,7 @@ def make_device_augmenter(cfg, is_source: bool = True):
         flip_prob = inp.HORIZONTAL_FLIP_PROB_TRAIN
 
         def impl(image, label, gen):
-            draws = draw_aspp(gen, image.shape[0], flip_prob, jitter)
+            draws = _rank_draws(draw_aspp, gen, image.shape[0], flip_prob, jitter)
             return augment_batch(image, label, draws, size=(h, w), mean=tuple(inp.PIXEL_MEAN),
                                  std=tuple(inp.PIXEL_STD), to_bgr255=inp.TO_BGR255,
                                  dtype=dtype)

@@ -8,8 +8,17 @@ package, and ``device_prefetch`` keeps ``DATA_PIPE.PREFETCH`` batches in
 flight to the device through pinned host buffers, in the parent.  The shuffle
 order is ``np.random.default_rng((seed, epoch)).permutation``, the JAX
 package's, so both packages draw the same batches, in the same order with
-threads or processes.  Per-process shards come with the parallelism slice and
-raise here.
+threads or processes.
+
+Two ways to split the data over a world of processes (parallel/dist.py):
+  * ``process_shard`` (eval): ``DistributedSampler`` semantics, the JAX
+    package's: process i of n takes ``order[i::n][:len // n]`` and batches
+    it; the last ``len % n`` items of the order are left out
+    (``left_out``);
+  * ``global_batch_slice(rank, world)`` (the trainers): every rank walks
+    the same global order and batches, and loads only its ``batch_size /
+    world`` contiguous rows of each, so that a step of ``world`` ranks sees
+    the batch of one process.
 
 Collate conventions: uint8 HWC images -> float/255; float images pass
 through; labels -> int32 [B,H,W].
@@ -26,10 +35,12 @@ import tempfile
 import traceback
 import weakref
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
+
+from ..parallel.dist import rank, world_size
 
 
 def preprocess_eval_image(image, transform) -> np.ndarray:
@@ -230,16 +241,22 @@ class DataLoader:
     the thread pool to that many forked worker processes (``_ProcessPool``,
     forked when the loader is built); the batches and their order are the
     threads' for a deterministic dataset.  ``close()`` stops the workers;
-    they also stop when the loader is garbage-collected."""
+    they also stop when the loader is garbage-collected.
+
+    ``process_shard`` takes the shard of process ``process_index`` of
+    ``process_count`` (by default this process's rank and world size); its
+    ``batch_size`` is the per-process one."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 4,
                  collate_fn=None, seed: int = 0, process_shard: bool = False,
+                 process_index: Optional[int] = None,
+                 process_count: Optional[int] = None,
                  worker_processes: int = 0):
-        if process_shard:
-            raise NotImplementedError(
-                "process_shard: per-process loader shards come with the port's "
-                "parallelism slice")
+        self.process_shard = process_shard
+        self.process_index = rank() if process_index is None else int(process_index)
+        self.process_count = world_size() if process_count is None else int(process_count)
+        self._slice = (0, 1)  # (rank, world) of global_batch_slice
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -254,9 +271,40 @@ class DataLoader:
         if self.worker_processes > 0:
             self._ensure_pool()
 
-    def __len__(self):
+    def _local_len(self) -> int:
         n = len(self.dataset)
+        return n // self.process_count if self.process_shard else n
+
+    def __len__(self):
+        n = self._local_len()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def left_out(self) -> List[int]:
+        """The dataset indices that no process takes under ``process_shard``
+        (the last ``len % process_count`` of the order); empty otherwise."""
+        if not self.process_shard:
+            return []
+        per = self._local_len()
+        return [int(i) for i in self._order()[per * self.process_count:]]
+
+    def global_batch_slice(self, rank_: int, world: int) -> "DataLoader":
+        """From the next iteration on, loads only rows ``[rank_ * b, (rank_ + 1)
+        * b)`` of each global batch, ``b = batch_size / world``; the order and
+        the batches stay the global ones.  Returns the loader."""
+        if self.process_shard or not self.drop_last:
+            raise ValueError("global_batch_slice splits whole global batches: it takes "
+                             "drop_last and no process_shard")
+        if self.batch_size % world or not 0 <= rank_ < world:
+            raise ValueError(f"batch_size={self.batch_size}: a slice of rank {rank_} of "
+                             f"a world of {world} needs a batch the world divides")
+        self._slice = (int(rank_), int(world))
+        return self
+
+    def _order(self) -> np.ndarray:
+        if self.shuffle:
+            return np.random.default_rng((self.seed, self._epoch)).permutation(
+                len(self.dataset))
+        return np.arange(len(self.dataset))
 
     def set_epoch(self, epoch: int) -> None:
         """Pins the shuffle order of the NEXT iteration to a pure function of
@@ -265,16 +313,20 @@ class DataLoader:
         self._epoch = int(epoch)
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = self._order()
         if self.shuffle:
-            order = np.random.default_rng(
-                (self.seed, self._epoch)).permutation(len(self.dataset))
             self._epoch += 1  # callers that never set_epoch still reshuffle
-        else:
-            order = np.arange(len(self.dataset))
+        if self.process_shard:
+            per = self._local_len()
+            order = order[self.process_index::self.process_count][:per]
         if self.drop_last:
             order = order[: len(self) * self.batch_size]
         batches = [order[i:i + self.batch_size]
                    for i in range(0, len(order), self.batch_size)]
+        rank_, world = self._slice
+        if world > 1:
+            rows = self.batch_size // world
+            batches = [idxs[rank_ * rows:(rank_ + 1) * rows] for idxs in batches]
         if self.worker_processes > 0:
             yield from self._iter_procs(batches)
             return

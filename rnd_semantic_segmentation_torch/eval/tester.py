@@ -45,8 +45,18 @@ applies the JAX Tester's policy (``auto``: float32 above
 agreement with float32 on the first batch stays below
 ``TEST.QUANT_AGREEMENT_FLOOR`` after ``repair_exclusions``, reason
 ``accuracy``; ``repaired`` when the repair reached it), and ``test()`` runs
-inside its scope.  ``quant_report`` records the outcome.  Multi-device eval
-is not ported.
+inside its scope.  ``quant_report`` records the outcome.
+
+In a world of more than one process (``cli.test`` under DIST.INITIALIZE)
+each rank evaluates its ``process_shard`` of the test set, pads a short
+batch to its loader's batch size with ignore-label rows (as the JAX
+``_pad_batch`` does; the pranet head's min-max spans the real rows), and
+the per-batch areas and the confusion matrix are summed over the ranks in
+int64 after the loop, so that the summary is the one of the global batches.
+The primary process alone writes the JSON and the heat map; each rank
+writes the ``--saveres`` PNGs of its own shard.  ``TEST.QUANT`` then
+evaluates in float32 with the reason ``multiprocess``, as the JAX Tester
+does.
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from ..ckpt.torch_import import load_part, load_reference_checkpoint
 from ..data.loader import device_prefetch
 from ..models.build import build_segmentor
 from ..ops import resize_bilinear
+from ..parallel.dist import all_reduce_, check_world, process_is_primary, world_size
 from ..serve.quant import (QuantConfig, argmax_agreement, calibrate_segmentor, quant_error_report,
                            quant_scope, repair_exclusions, resolve_mode)
 from ..train.segmentor import Segmentor
@@ -86,6 +97,7 @@ class Tester:
         self.trainid2name = trainid2name or {}
         self.saveres = saveres
         self.palette = palette
+        check_world(cfg)
         self.device = resolve_device(cfg.MODEL.DEVICE)
         self.spec = build_segmentor(cfg)
         self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES)
@@ -117,8 +129,12 @@ class Tester:
 
     # -- probability head ------------------------------------------------------
     @torch.inference_mode()
-    def _probs_impl(self, x: torch.Tensor, label_size: Tuple[int, int]) -> torch.Tensor:
-        """x [B,3,H,W] float32 on the model's device -> probs [B,C,H',W']."""
+    def _probs_impl(self, x: torch.Tensor, label_size: Tuple[int, int],
+                    valid: Optional[int] = None) -> torch.Tensor:
+        """x [B,3,H,W] float32 on the model's device -> probs [B,C,H',W'].
+        ``valid``: the batch's real rows are its first ``valid``, the rest
+        padding; only the pranet head, whose min-max spans the batch, reads
+        it."""
         fam = self.spec.family
         if fam == "deeplab":
             def forward(image, size):
@@ -146,7 +162,8 @@ class Tester:
             outputs, _ = self.segmentor(x)
             out = resize_bilinear(outputs[-1].float(), label_size, align_corners=False)
             p = torch.sigmoid(out)[:, 0]
-            p = (p - p.min()) / (p.max() - p.min() + 1e-8)  # over the whole batch
+            real = p[:valid] if valid is not None else p
+            p = (p - real.min()) / (real.max() - real.min() + 1e-8)  # over the whole batch
             return torch.stack([1 - p, p], dim=1)
         raise NotImplementedError(fam)
 
@@ -177,11 +194,14 @@ class Tester:
         if requested == "none":
             self._qctx = None
             return None
-        if torch.distributed.is_available() and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            # the JAX Tester serves float32 here (reason "multiprocess"): the
-            # port has no multi-process eval (DIST.* raises), so neither
-            raise RuntimeError(f"TEST.QUANT={requested}: quantized eval runs in one process")
+        if world_size() > 1:
+            # each rank would calibrate on its own shard and take other scales
+            self.logger.warning(f"TEST.QUANT={requested}: quantized eval is not supported "
+                                f"under multi-process eval (world size {world_size()}); "
+                                f"evaluating in float32")
+            self.quant_report["reason"] = "multiprocess"
+            self._qctx = None
+            return None
         if mode == "none":
             self.logger.info(f"TEST.QUANT=auto: {w}x{h} exceeds QUANT_MAX_AREA="
                              f"{self.cfg.TEST.QUANT_MAX_AREA}; evaluating in float32")
@@ -241,30 +261,53 @@ class Tester:
     def _test_loop(self) -> Dict:
         cfg = self.cfg
         nc, ignore = cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL
-        pending = []  # per batch: areas [4,C] and confusion matrix, on the device
+        multi = world_size() > 1
+        areas, cmt = [], torch.zeros((nc, nc), dtype=torch.int64, device=self.device)
         batches = device_prefetch(iter(self.test_loader), cfg.DATA_PIPE.PREFETCH,
                                   self.device)
         for batch in batches:
+            n_real = int(batch["image"].shape[0])
+            if multi:
+                batch = self._pad_batch(batch, self.test_loader.batch_size)
             x = batch["image"].permute(0, 3, 1, 2).contiguous()
             label = batch["label"]
-            pred = self._probs_impl(x, tuple(label.shape[1:3])).argmax(dim=1)
+            pred = self._probs_impl(x, tuple(label.shape[1:3]),
+                                    valid=n_real if multi else None).argmax(dim=1)
             if self.saveres:
-                for mask, name in zip(pred.cpu().numpy(), batch["name"]):
+                for mask, name in zip(pred[:n_real].cpu().numpy(), batch["name"]):
                     save_pseudo_label(mask, self.palette, cfg.PSEUDO_DIR,
                                       cfg.DATASETS.TEST, name)
-            pending.append((torch.stack(intersection_and_union(pred, label, nc, ignore)),
-                            confusion_matrix(pred, label, nc, ignore)))
+            # areas are whole pixel counts: int64 sums them exactly over ranks
+            areas.append(torch.stack(intersection_and_union(pred, label, nc, ignore)).long())
+            cmt += confusion_matrix(pred, label, nc, ignore)
+        # batch i of every rank makes up global batch i (equal shards)
+        areas = all_reduce_(torch.stack(areas) if areas else
+                            torch.zeros((0, 4, nc), dtype=torch.int64, device=self.device))
+        cmt = all_reduce_(cmt).cpu().numpy()
 
         meter = AverageMeter(nc)
-        cmt = np.zeros((nc, nc), np.int64)
-        for areas, batch_cmt in pending:
-            meter.update(*areas.cpu().numpy())
-            cmt += batch_cmt.cpu().numpy()
+        for batch_areas in areas.cpu().numpy():
+            meter.update(*batch_areas)
         self.confusion = cmt
         summary = meter.summary(self.logger)
-        dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.spec.family}_confusion_matrix.json"),
-                  {"cmt": cmt.tolist(), "classes": list(self.trainid2name.values())})
-        plot_confusion_matrix(
-            cmt, list(self.trainid2name.values()) or [str(i) for i in range(nc)],
-            out_path=os.path.join(cfg.OUTPUT_DIR, f"{self.spec.family}_confusion_matrix.png"))
+        if process_is_primary():
+            dump_json(os.path.join(cfg.OUTPUT_DIR,
+                                   f"{self.spec.family}_confusion_matrix.json"),
+                      {"cmt": cmt.tolist(), "classes": list(self.trainid2name.values())})
+            plot_confusion_matrix(
+                cmt, list(self.trainid2name.values()) or [str(i) for i in range(nc)],
+                out_path=os.path.join(cfg.OUTPUT_DIR,
+                                      f"{self.spec.family}_confusion_matrix.png"))
         return summary
+
+    def _pad_batch(self, batch, rows: int):
+        """A short batch padded to ``rows`` with zero images and ignore-label
+        rows, which count in no area."""
+        pad = rows - int(batch["image"].shape[0])
+        if pad <= 0:
+            return batch
+        image, label = batch["image"], batch["label"]
+        return {**batch,
+                "image": torch.cat([image, image.new_zeros((pad,) + image.shape[1:])]),
+                "label": torch.cat([label, label.new_full((pad,) + label.shape[1:],
+                                                          self.cfg.INPUT.IGNORE_LABEL)])}

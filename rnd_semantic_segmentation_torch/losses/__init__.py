@@ -7,6 +7,16 @@ with alpha 0.7 and eps 1, and BCE, at each of its five scales);
 ``structure_loss`` is the pranet family's, on each of its four maps.  The
 Dice losses come with their family.  Every reduction is in float32, whatever
 the type of the logits.
+
+``across_ranks=True`` (the train steps, in a world of more than one process)
+makes the two losses that are not a mean of per-image terms global-batch
+losses: ``cross_entropy`` divides by the count of valid pixels over every
+rank, and ``tversky_loss`` sums tp, fn and fp over every rank before its
+ratio.  Each is scaled so that the mean over the ranks of their gradients
+is the gradient of the loss over the global batch, and so that the ranks'
+mean of the values is its value.  BCE, the soft-label CE and the structure
+loss are means over equal shards: the plain mean over the ranks is theirs.
+In a world of one the flag changes nothing.
 """
 
 from __future__ import annotations
@@ -15,22 +25,28 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import avg_pool
+from ..parallel.dist import all_reduce_, all_reduce_sum, world_size
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  ignore_index: int = 255) -> torch.Tensor:
+                  ignore_index: int = 255, across_ranks: bool = False) -> torch.Tensor:
     """Softmax CE, mean over the pixels whose label is not ``ignore_index``.
 
     logits ``[B,C,H,W]`` (any float type, promoted to float32), labels
     ``[B,H,W]`` integer.  The sum is divided by ``max(count_valid, 1)``, so a
     batch in which every pixel is ignored gives 0 and zero gradients, where
-    ``F.cross_entropy(..., reduction="mean")`` would give NaN.
+    ``F.cross_entropy(..., reduction="mean")`` would give NaN.  With
+    ``across_ranks`` the count is the group's, and the rank's sum is
+    weighted by the world size.
     """
     labels = labels.long()
     total = F.cross_entropy(logits.float(), labels, ignore_index=ignore_index,
                             reduction="sum")
-    count = (labels != ignore_index).sum().clamp(min=1)
-    return total / count
+    count = (labels != ignore_index).sum()
+    world = world_size() if across_ranks else 1
+    if world > 1:
+        return total * world / all_reduce_(count).clamp(min=1)
+    return total / count.clamp(min=1)
 
 
 def bce_with_logits(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -40,12 +56,13 @@ def bce_with_logits(pred: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
 
 
 def tversky_loss(pred: torch.Tensor, label: torch.Tensor, alpha: float = 0.7,
-                 eps: float = 1.0) -> torch.Tensor:
+                 eps: float = 1.0, across_ranks: bool = False) -> torch.Tensor:
     """Tversky loss per class over (B, H, W), averaged over the classes.
 
     pred ``[B,C,H,W]`` logits, label ``[B,C,H,W]`` one-hot (or its resized,
     soft version).  ``1 - mean_c (tp + eps) / (tp + alpha*fn + (1-alpha)*fp + eps)``
     with the sigmoid probabilities, so false negatives weigh ``alpha``.
+    With ``across_ranks`` the three sums span the group.
     """
     probs = torch.sigmoid(pred.float())
     label = label.float()
@@ -53,6 +70,8 @@ def tversky_loss(pred: torch.Tensor, label: torch.Tensor, alpha: float = 0.7,
     tp = (probs * label).sum(dims)
     fn = (label * (1 - probs)).sum(dims)
     fp = (probs * (1 - label)).sum(dims)
+    if across_ranks and world_size() > 1:
+        tp, fn, fp = all_reduce_sum(torch.stack([tp, fn, fp])).unbind(0)
     return 1.0 - ((tp + eps) / (tp + alpha * fn + (1 - alpha) * fp + eps)).mean()
 
 

@@ -68,7 +68,23 @@ class SegmentorSpec:
     disc_tap: str
 
 
+def _refuse_rewrites(cfg) -> None:
+    """``MODEL.S2D_MAX_CHANNELS > 0`` and ``MODEL.SUBPIXEL_DECONV`` select the
+    JAX package's exact rewrites of the stem convs and the transposed convs
+    (``ops/s2d.py``, ``ops/subpixel.py``), which the port does not have yet:
+    they raise here, so that training, eval, serving and export refuse them
+    alike instead of ignoring them."""
+    asked = [name for name, on in (
+        ("MODEL.S2D_MAX_CHANNELS > 0", int(cfg.MODEL.S2D_MAX_CHANNELS) > 0),
+        ("MODEL.SUBPIXEL_DECONV", bool(cfg.MODEL.SUBPIXEL_DECONV))) if on]
+    if asked:
+        raise NotImplementedError(
+            f"not ported yet: {', '.join(asked)} (the space-to-depth and sub-pixel "
+            f"rewrites of the JAX package)")
+
+
 def build_segmentor(cfg) -> SegmentorSpec:
+    _refuse_rewrites(cfg)
     spec = _build_segmentor(cfg)
     for module in spec.modules.values():
         set_remat_blocks(module, bool(cfg.MODEL.REMAT_BLOCKS))

@@ -14,7 +14,11 @@ In train mode an identity block applies per-sample drop-connect (stochastic
 depth) at its rate ``drop_connect_rate * idx / len(blocks)``: each sample's
 branch is kept with probability ``keep = 1 - rate`` and then scaled by
 ``1/keep``, drawn from the ``torch.Generator`` the caller passes down through
-``forward``; there is no module-level random state.  Each ``MBConvBlock``
+``forward``; there is no module-level random state.  In a world of more
+than one process a block draws the masks of the global batch and takes its
+rank's rows (``parallel.dist.rank_rows``): every rank draws what one process
+would draw for the whole batch, as every JAX device does under one key.
+Each ``MBConvBlock``
 is a ``RematBlock`` (``MODEL.REMAT_BLOCKS``, models/remat.py) that draws its
 mask before its rematerialised body.
 
@@ -37,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mbconv import fused_mbconv_applies, fused_mbconv_core
+from ..parallel.dist import rank_rows, world_size
 from .layers import BatchNorm, Conv2d, cast_param, swish
 from .remat import RematBlock
 
@@ -202,8 +207,10 @@ class MBConvBlock(RematBlock):
                 raise ValueError("drop-connect in train mode draws from an explicit "
                                  "torch.Generator; pass generator=")
             keep = 1.0 - self.drop_connect_rate
-            mask = torch.rand((x.shape[0], 1, 1, 1), generator=generator,
-                              device=x.device) < keep
+            rows = x.shape[0]
+            draw = torch.rand((rows * world_size(), 1, 1, 1), generator=generator,
+                              device=x.device)
+            mask = rank_rows(draw, rows) < keep
         return super().forward(x, mask)
 
     def body(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:

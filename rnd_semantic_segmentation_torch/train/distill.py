@@ -17,6 +17,10 @@ teacher computes in it too (on the card the attn teacher's fused MBConv
 kernel then runs in bfloat16); the pseudo-labels come from a float32 softmax
 or sigmoid.  SOLVER.REMAT rematerialises the student's forward and loss.
 
+In a world of more than one process the student's CE or Tversky loss spans
+the group, its gradients are averaged over the ranks before its update and
+the reported loss is the ranks' mean; the teacher labels each rank's shard.
+
 The student's step is the JAX online step, not the port's source step: no
 gradient clamp (pranet's 0.5 is absent, SOLVER.GRAD_CLIP is not read), no
 SOLVER.ACCUM_STEPS micro-batches, and the LR ``lr_sched(state.step,
@@ -30,6 +34,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..models.remat import remat_wrap
+from ..parallel.dist import average_gradients, mean_over_ranks, world_size
 from .segmentor import Segmentor
 from .state import TrainState, apply_updates
 from ..utils.device import compute_dtype
@@ -80,7 +85,8 @@ def make_online_distill_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
             f"DISTILL.CONFIDENCE_THRESHOLD is not supported for the {spec.family} family: "
             f"its loss has no ignore-label mechanism")
     check_step_knobs(cfg)
-    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL,
+                               across_ranks=world_size() > 1)
     lr_sched = make_lr_schedule(spec, cfg, steps_per_epoch)
     ignore = cfg.INPUT.IGNORE_LABEL
     seed = cfg.SEED if seed is None else seed
@@ -105,10 +111,12 @@ def make_online_distill_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
         generator.manual_seed(step_seed(seed, state.step))
         loss = student_loss(x, pseudo)
         loss.backward()
+        for module in spec.modules.values():
+            average_gradients(module.parameters())
         lr = lr_sched(float(state.step), epoch0)
         for name, opt in state.optimizers.items():
             apply_updates(opt, lr * spec.lr_mults[name])
         state.step += 1
-        return {"loss": float(loss.detach()), "lr": lr}
+        return {"loss": float(mean_over_ranks(loss.detach())), "lr": lr}
 
     return step_fn

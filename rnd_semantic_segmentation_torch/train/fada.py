@@ -28,6 +28,11 @@ float32.  SOLVER.REMAT rematerialises the generator's loss (both forwards, D
 on the target tap and the two losses) in its backward; D's own step reads
 the taps and soft labels that the first run gave.
 
+In a world of more than one process the segmentation loss spans the group
+(``make_family_loss(..., across_ranks=True)``), the segmentor's gradients
+are averaged over the ranks before its update and D's before D's, and the
+four losses reported are the ranks' means.
+
 LRs: poly per iteration on ``BASE_LR`` and ``BASE_LR_D`` for deeplab, gald
 and pranet, warm-up cosine per epoch on both for attn, each segmentor part at its
 ``lr_mults``.  Like the JAX step it reads neither LR_METHOD, LR_BATCH_REF,
@@ -44,6 +49,7 @@ from torch import nn
 
 from .. import losses
 from ..models.remat import remat_wrap
+from ..parallel.dist import average_gradients, mean_over_ranks, world_size
 from .schedules import poly_lr, warmup_cosine_lr
 from .segmentor import Segmentor
 from .state import TrainState, apply_updates, make_optimizer
@@ -85,7 +91,8 @@ def make_fada_train_step(segmentor: Segmentor, disc: nn.Module, cfg,
     """
     check_step_knobs(cfg)
     spec = segmentor.spec
-    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL,
+                               across_ranks=world_size() > 1)
     adv_weight = float(cfg.SOLVER.ADV_WEIGHT)
     max_iter = cfg.SOLVER.EPOCHS * steps_per_epoch
     epoch_sched = spec.family == "attn"
@@ -133,6 +140,8 @@ def make_fada_train_step(segmentor: Segmentor, disc: nn.Module, cfg,
         zeros = torch.zeros_like(tgt_soft)
         # inputs=: D is a constant of the generator's loss, its .grad stays empty
         total.backward(inputs=seg_params)
+        for module in spec.modules.values():
+            average_gradients(module.parameters())
         it = float(state.step)
         lr = lr_at(cfg.SOLVER.BASE_LR, it, epoch0)
         for name in spec.modules:
@@ -144,11 +153,13 @@ def make_fada_train_step(segmentor: Segmentor, disc: nn.Module, cfg,
         loss_d_tgt = 0.5 * losses.soft_label_cross_entropy(
             disc(tgt_tap, tgt_size), torch.cat([zeros, tgt_soft], dim=1))
         (loss_d_src + loss_d_tgt).backward()
+        average_gradients(disc.parameters())
         lr_d = lr_at(cfg.SOLVER.BASE_LR_D, it, epoch0)
         apply_updates(state.optimizers[DISC_PART], lr_d)
         state.step += 1
-        values = torch.stack([loss_seg.detach(), loss_adv.detach(), loss_d_src.detach(),
-                              loss_d_tgt.detach()]).tolist()  # one device sync
+        values = mean_over_ranks(torch.stack([
+            loss_seg.detach(), loss_adv.detach(), loss_d_src.detach(),
+            loss_d_tgt.detach()])).tolist()  # one device sync
         return dict(zip(("loss_seg", "loss_adv_tgt", "loss_D_src", "loss_D_tgt"), values),
                     lr=lr, lr_D=lr_d)
 

@@ -22,6 +22,14 @@ the optimizer's state and every loss stay float32.  SOLVER.REMAT (none, full,
 dots) rematerialises each micro-batch's forward and loss in the backward
 (models/remat.py ``remat_wrap``).
 
+In a world of more than one process (parallel/dist.py) each rank steps on
+its slice of the global batch: the CE and Tversky losses span the group
+(``make_family_loss(..., across_ranks=True)``), each part's gradients are
+averaged over the ranks after the backward and before the clamp and the
+optimizer, and the reported loss is the ranks' mean, the global batch's.
+Under SOLVER.ACCUM_STEPS micro-batch i is the union of the ranks' i-th
+slices of their shards.
+
 LR schedules follow the reference trainers: poly per iteration for deeplab and
 gald, per-epoch warm-up and cosine for pranet and attn whatever
 SOLVER.LR_METHOD says.  Head parts get their 10x through ``spec.lr_mults``.
@@ -36,6 +44,7 @@ import torch
 from .. import losses
 from ..models.remat import remat_mode, remat_wrap
 from ..ops import resize_bilinear
+from ..parallel.dist import average_gradients, mean_over_ranks, world_size
 from ..utils.device import compute_dtype
 from ..utils.seeding import mix_seed
 from .schedules import (
@@ -48,19 +57,24 @@ from .segmentor import Segmentor
 from .state import TrainState, apply_updates
 
 
-def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callable:
+def make_family_loss(spec, num_classes: int, ignore_label: int = 255,
+                     across_ranks: bool = False) -> Callable:
+    """``loss_fn(outputs, label)``; ``across_ranks`` makes CE and Tversky
+    global-batch losses over the process group (losses/__init__.py)."""
     fam = spec.family
+
+    def ce(logits, label):
+        return losses.cross_entropy(logits, label, ignore_label, across_ranks=across_ranks)
+
     if fam == "deeplab":
         def loss_fn(outputs, label):
-            return losses.cross_entropy(outputs[0], label, ignore_label)
+            return ce(outputs[0], label)
         return loss_fn
     if fam == "gald":
         def loss_fn(outputs, label):
             out5, out4, out3, out2 = outputs
-            return (losses.cross_entropy(out2, label, ignore_label) * 1.0
-                    + losses.cross_entropy(out3, label, ignore_label) * 0.8
-                    + losses.cross_entropy(out4, label, ignore_label) * 0.6
-                    + losses.cross_entropy(out5, label, ignore_label) * 0.4)
+            return (ce(out2, label) * 1.0 + ce(out3, label) * 0.8
+                    + ce(out4, label) * 0.6 + ce(out5, label) * 0.4)
         return loss_fn
     if fam in ("attn", "attnwrap"):
         def loss_fn(outputs, label):
@@ -69,7 +83,8 @@ def make_family_loss(spec, num_classes: int, ignore_label: int = 255) -> Callabl
             total = torch.zeros((), dtype=torch.float32, device=label.device)
             for out in outputs:  # scales 1, 1/2, 1/4, 1/8, 1/16
                 scaled = resize_bilinear(onehot, out.shape[-2:])
-                total = total + 0.5 * losses.tversky_loss(out, scaled) \
+                total = total + 0.5 * losses.tversky_loss(out, scaled,
+                                                          across_ranks=across_ranks) \
                               + 0.5 * losses.bce_with_logits(out, scaled)
             return total
         return loss_fn
@@ -151,7 +166,8 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
     """
     check_step_knobs(cfg)
     spec = segmentor.spec
-    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL)
+    loss_fn = make_family_loss(spec, cfg.MODEL.NUM_CLASSES, cfg.INPUT.IGNORE_LABEL,
+                               across_ranks=world_size() > 1)
     lr_sched = make_lr_schedule(spec, cfg, steps_per_epoch)
     grad_clip = cfg.SOLVER.GRAD_CLIP or (0.5 if spec.family == "pranet" else 0.0)
     accum = max(int(cfg.SOLVER.ACCUM_STEPS), 1)
@@ -180,10 +196,12 @@ def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,
             loss = micro_loss(x[i * b:(i + 1) * b], label[i * b:(i + 1) * b])
             loss.backward()
             total += loss.detach()
+        for module in spec.modules.values():
+            average_gradients(module.parameters())
         lr = lr_sched(float(state.step), epoch0)
         for name, opt in state.optimizers.items():
             apply_updates(opt, lr * spec.lr_mults[name], grad_clip=grad_clip)
         state.step += 1
-        return {"loss": float(total), "lr": lr}
+        return {"loss": float(mean_over_ranks(total)), "lr": lr}
 
     return step_fn

@@ -30,9 +30,23 @@ Loop semantics kept from the reference trainers:
     train-loader batches (device-augmented when DEVICE_AUG is on; the
     drop-connect generator seeded from ``SEED + 2``) and writes
     ``{Prefix}-{SOLVER.EPOCHS}.pth`` again; the FADA trainer never does,
-    as in the JAX package.
+    as in the JAX package; under more than one process it logs a warning
+    and skips it, as the JAX trainer does;
+  * with SOLVER.ASYNC_CHECKPOINT a save copies the tensors and leaves the
+    file to a background writer (ckpt/async_writer.py): pruned to
+    ``max(KEEP - 1, 1)`` before the save, as in the JAX trainer; the trainer
+    waits for the writer before the next save, before the recalibration's
+    re-save and at the end of ``train()``, and ``resume latest`` waits too.
+    ``save_blocked_ms`` holds how long the loop waited at each save.
 
-One device, no mesh.  The knobs that raise below come with their slices.
+One process holds one device.  In a world of more than one
+(``parallel.initialize_distributed``; DIST.INITIALIZE) each rank builds the
+same seeded parts, takes rank 0's (``broadcast_module``), turns its
+BatchNorms into ``CrossRankBatchNorm2d`` and loads its slice of each global
+batch (``DataLoader.global_batch_slice``); the steps average the gradients.
+The primary process alone writes ``config.yaml``, the checkpoints, the
+charts and the logs, and each epoch's save ends in a barrier; every rank
+reads ``resume``.  MODEL.WEIGHTS and DIST.SPATIAL_PARALLEL > 1 raise.
 """
 
 from __future__ import annotations
@@ -43,6 +57,7 @@ import time
 
 import torch
 
+from ..ckpt.async_writer import AsyncCheckpointWriter, wait_for_checkpoints
 from ..ckpt.checkpoint_io import (
     checkpoint_name,
     latest_checkpoint,
@@ -54,6 +69,15 @@ from ..data.device_pipe import make_device_augmenter
 from ..data.loader import DataLoader, device_prefetch
 from ..models.build import build_adversarial_discriminator, build_segmentor
 from ..ops import resize_bilinear
+from ..parallel import (
+    barrier,
+    broadcast_module,
+    check_world,
+    convert_batchnorm,
+    process_is_primary,
+    rank,
+    world_size,
+)
 from ..utils import MetricLogger, dump_json, resolve_device, setup_logger
 from .bn_recal import recalibrate_batch_stats
 from .fada import DISC_PART, make_disc_optimizer, make_fada_train_step
@@ -85,20 +109,14 @@ def resize_batch_to(batch, size: int):
 
 
 def _refuse_unported(cfg) -> None:
-    """Knobs of the JAX trainer whose counterparts are not ported yet raise;
-    none is silently ignored."""
-    waiting = {
-        "MODEL.WEIGHTS (pretrained backbone import)": bool(cfg.MODEL.WEIGHTS),
-        "SOLVER.ASYNC_CHECKPOINT": bool(cfg.SOLVER.ASYNC_CHECKPOINT),
-        "DIST.NUM_DEVICES > 1": cfg.DIST.NUM_DEVICES > 1,
-        "DIST.SPATIAL_PARALLEL > 1": cfg.DIST.SPATIAL_PARALLEL > 1,
-        "DIST.INITIALIZE": bool(cfg.DIST.INITIALIZE),
-    }
-    asked = [name for name, on in waiting.items() if on]
-    if asked:
+    """Knobs of the JAX trainer whose counterparts are not ported yet raise
+    (MODEL.WEIGHTS here, DIST.SPATIAL_PARALLEL > 1 in ``check_world``, with
+    DIST.NUM_DEVICES against the world); none is silently ignored."""
+    if cfg.MODEL.WEIGHTS:
         raise NotImplementedError(
-            f"not ported yet: {', '.join(asked)}; the port's trainer runs one "
-            f"device from seeded weights")
+            "not ported yet: MODEL.WEIGHTS (pretrained backbone import); the port's "
+            "trainer starts from seeded weights")
+    check_world(cfg)
 
 
 class Trainer:
@@ -107,10 +125,9 @@ class Trainer:
     # chart title -> metric of the step, dumped to <chart name>_chart_params.json
     CHART = {"learning rate": "lr", "loss": "loss"}
 
-    def __init__(self, name: str, cfg, train_loader: DataLoader,
-                 local_rank: int = 0, logger=None):
-        self._build(name, cfg, local_rank, logger)
-        self.train_loader = train_loader
+    def __init__(self, name: str, cfg, train_loader: DataLoader, logger=None):
+        self._build(name, cfg, logger)
+        self.train_loader = self._slice(train_loader)
         self.state = TrainState(optimizers=make_optimizers(self.spec, cfg))
         self.ckpt_prefix, self.ckpt_modules = self.spec.ckpt_prefix, self.spec.modules
         self.chart_name = self.spec.family
@@ -123,19 +140,36 @@ class Trainer:
         self.device_augs = ((make_device_augmenter(cfg),) if cfg.DATA_PIPE.DEVICE_AUG
                             else None)
 
-    def _build(self, name: str, cfg, local_rank: int, logger) -> None:
+    def _build(self, name: str, cfg, logger) -> None:
         _refuse_unported(cfg)
         self.cfg = cfg
         self.name = name
-        self.logger = logger or setup_logger(name + "_train", cfg.OUTPUT_DIR, local_rank)
+        self.world = world_size()
+        self.logger = logger or setup_logger(name + "_train", cfg.OUTPUT_DIR, rank())
         self.device = resolve_device(cfg.MODEL.DEVICE)
         if cfg.DEBUG.NANS:
             torch.autograd.set_detect_anomaly(True)
         torch.manual_seed(cfg.SEED)
         self.spec = build_segmentor(cfg)
         self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES).to(self.device)
+        for module in self.spec.modules.values():
+            self._replicate(module)
         self.series = {key: [] for key in self.CHART.values()}
         self.rates = (1.0,)  # optimizer steps a batch, at these rates of its side
+        self.ckpt_writer = (AsyncCheckpointWriter() if cfg.SOLVER.ASYNC_CHECKPOINT
+                            and process_is_primary() else None)
+        self.save_blocked_ms = []
+
+    def _replicate(self, module) -> None:
+        """Under more than one process: rank 0's parameters and buffers, and
+        BatchNorm statistics across the ranks."""
+        if self.world > 1:
+            convert_batchnorm(module)
+            broadcast_module(module)
+
+    def _slice(self, loader: DataLoader) -> DataLoader:
+        """This rank's slice of each of the loader's global batches."""
+        return loader.global_batch_slice(rank(), self.world) if self.world > 1 else loader
 
     def _resume(self) -> int:
         """Restores ``ckpt_modules`` and ``state`` from ``cfg.resume`` (a file,
@@ -188,10 +222,11 @@ class Trainer:
         self.meters = meters = MetricLogger(delimiter="  ")
         max_iter = cfg.SOLVER.EPOCHS * self.steps_per_epoch
         self.logger.info("#" * 20 + f" Start {self.ckpt_prefix} Training " + "#" * 20)
-        # reproducibility: snapshot the resolved config next to the run
-        os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
-        with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as fh:
-            fh.write(cfg.dump())
+        if process_is_primary():
+            # reproducibility: snapshot the resolved config next to the run
+            os.makedirs(cfg.OUTPUT_DIR, exist_ok=True)
+            with open(os.path.join(cfg.OUTPUT_DIR, "config.yaml"), "w") as fh:
+                fh.write(cfg.dump())
         start = time.time()
 
         iteration = self.state.step
@@ -224,19 +259,33 @@ class Trainer:
                         f"iter: {iteration}  {meters}  lr: {metrics['lr']:.6f}  "
                         f"max mem: {self._peak_memory_mb():.0f}")
             if epoch % cfg.SOLVER.CHECKPOINT_PERIOD == 0:
-                self._prune_checkpoints()
-                path = checkpoint_name(cfg.OUTPUT_DIR, self.ckpt_prefix, epoch)
-                save_checkpoint(path, self.ckpt_modules, self.state, epoch)
-                self.logger.info(f"[Saving Snapshot:] {path}")
+                self._save(epoch, prune=True)
 
         self._finish()
+        wait_for_checkpoints()
         total = time.time() - start
         self.logger.info(
             f"Total training time: {datetime.timedelta(seconds=int(total))} "
             f"({total / max(cfg.SOLVER.EPOCHS, 1):.4f} s / epoch)")
-        dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.chart_name}_chart_params.json"),
-                  {title: self.series[key] for title, key in self.CHART.items()})
+        if process_is_primary():
+            dump_json(os.path.join(cfg.OUTPUT_DIR, f"{self.chart_name}_chart_params.json"),
+                      {title: self.series[key] for title, key in self.CHART.items()})
         return self.state
+
+    def _save(self, epoch: int, prune: bool) -> None:
+        """``{Prefix}-{epoch}.pth`` from the primary process, after the
+        writes in flight and, when ``prune``, the pruning; then a barrier.
+        The time the loop waited goes to ``save_blocked_ms``."""
+        if process_is_primary():
+            tic = time.perf_counter()
+            wait_for_checkpoints()
+            if prune:
+                self._prune_checkpoints()
+            path = checkpoint_name(self.cfg.OUTPUT_DIR, self.ckpt_prefix, epoch)
+            save_checkpoint(path, self.ckpt_modules, self.state, epoch, writer=self.ckpt_writer)
+            self.save_blocked_ms.append((time.perf_counter() - tic) * 1e3)
+            self.logger.info(f"[Saving Snapshot:] {path}")
+        barrier()
 
     def _finish(self) -> None:
         """After the last epoch: the BatchNorm recalibration, when asked."""
@@ -249,6 +298,12 @@ class Trainer:
         0, 1, ...), then ``{Prefix}-{SOLVER.EPOCHS}.pth`` written again with
         the optimizers' state, so that eval and resume see them."""
         cfg = self.cfg
+        if self.world > 1:
+            # each rank's loader slice would recalibrate its replica on other
+            # data and tell the ranks' statistics apart
+            self.logger.warning("SOLVER.BN_RECAL_BATCHES ignored under multi-process "
+                                "training (per-process loader shards)")
+            return
         batches = []
         for i, batch in enumerate(device_prefetch(iter(self.train_loader),
                                                   cfg.DATA_PIPE.PREFETCH, device=self.device)):
@@ -261,9 +316,7 @@ class Trainer:
         n = recalibrate_batch_stats(self.segmentor, batches, generator=generator,
                                     seed=cfg.SEED + 2)
         self.logger.info(f"[BN-recal] running stats re-estimated over {n} batches")
-        path = checkpoint_name(cfg.OUTPUT_DIR, self.ckpt_prefix, cfg.SOLVER.EPOCHS)
-        save_checkpoint(path, self.ckpt_modules, self.state, cfg.SOLVER.EPOCHS)
-        self.logger.info(f"[BN-recal] re-saved {path}")
+        self._save(cfg.SOLVER.EPOCHS, prune=False)
 
 
 class FadaTrainer(Trainer):
@@ -285,11 +338,12 @@ class FadaTrainer(Trainer):
              "target discriminator loss": "loss_D_tgt"}
 
     def __init__(self, name: str, cfg, src_loader: DataLoader, tgt_loader: DataLoader,
-                 local_rank: int = 0, logger=None):
-        self._build(name, cfg, local_rank, logger)
-        self.src_loader, self.tgt_loader = src_loader, tgt_loader
+                 logger=None):
+        self._build(name, cfg, logger)
+        self.src_loader, self.tgt_loader = self._slice(src_loader), self._slice(tgt_loader)
         torch.manual_seed(cfg.SEED + 2)
         self.disc = build_adversarial_discriminator(cfg, self.spec).to(self.device)
+        self._replicate(self.disc)
         self.state = TrainState(optimizers={**make_optimizers(self.spec, cfg),
                                             DISC_PART: make_disc_optimizer(self.disc)})
         self.ckpt_prefix = f"{self.spec.ckpt_prefix}Fada"

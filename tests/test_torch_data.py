@@ -287,12 +287,50 @@ def test_every_config_dataset_name_resolves_to_the_same_reader(config, tmp_path)
             assert got.image_paths == ref.image_paths
 
 
-def test_unknown_names_and_native_decode_raise(tmp_path):
+def test_the_deeplab_kvasir_tpu_recipe_cannot_batch_frames_of_two_sizes_in_either_package(root):
+    """configs/deeplabv2_r101_src_kvasir_tpu.yaml reads kvasir_train, whose
+    frames keep their own sizes, and under DATA_PIPE.DEVICE_AUG the host's
+    aspp stub crops nothing at INPUT_SCALES_TRAIN (1, 1): the collate meets
+    frames of two sizes and raises, in both packages (ROADMAP Queue 3, kept
+    on purpose; the on-card recipe run writes frames of one size)."""
+    from rnd_semantic_segmentation_tpu.data.loader import DataLoader as JaxLoader
+    from rnd_semantic_segmentation_tpu.data.loader import build_collate_fn as jax_collate
+
+    from rnd_semantic_segmentation_torch.data import DataLoader, build_collate_fn
+
+    cfgs = []
+    for make in (get_default_cfg, jax_default_cfg):
+        cfg = make()
+        cfg.merge_from_file(os.path.join(REPO, "configs", "deeplabv2_r101_src_kvasir_tpu.yaml"))
+        cfg.merge_from_list(["DATASETS.DATASET_DIR", str(root), "DATA_PIPE.NATIVE_DECODE",
+                             "False", "MODEL.DEVICE", "cpu"])
+        cfgs.append(cfg)
+    port, ref = build_dataset(cfgs[0], "train"), jax_build_dataset(cfgs[1], "train")
+    assert len({port[i][0].shape for i in range(len(port))}) > 1
+    for loader in (DataLoader(port, batch_size=len(port), num_workers=1,
+                              collate_fn=build_collate_fn(cfgs[0])),
+                   JaxLoader(ref, batch_size=len(ref), num_workers=1,
+                             collate_fn=jax_collate(cfgs[1]))):
+        with pytest.raises(ValueError, match="same shape"):
+            next(iter(loader))
+
+
+def test_unknown_names_and_native_decode_raise(tmp_path, monkeypatch):
+    """Unknown names raise in both packages.  DATA_PIPE.NATIVE_DECODE builds
+    a dataset that decodes with the native library, and raises when the
+    library cannot be built (here a missing compiler): it never falls back
+    to PIL quietly."""
+    from rnd_semantic_segmentation_torch.data import native_decode
+
     cfg, jcfg = _cfgs(tmp_path, "DATASETS.SOURCE_TRAIN", "imagenet_train")
     for catalog, c in ((DatasetCatalog, cfg), (JaxCatalog, jcfg)):
         with pytest.raises(RuntimeError, match="imagenet_train"):
             catalog.get(c, "imagenet_train", "train", 2)
     cfg, _ = _cfgs(tmp_path, "DATASETS.SOURCE_TRAIN", "synthetic_train",
                    "DATA_PIPE.NATIVE_DECODE", "True")
-    with pytest.raises(NotImplementedError, match="NATIVE_DECODE"):
+    assert build_dataset(cfg, "train").use_native_decode
+    monkeypatch.setattr(native_decode, "_lib", None)
+    monkeypatch.setattr(native_decode, "LIBRARY", str(tmp_path / "libsegdata.so"))
+    monkeypatch.setattr(native_decode, "CXX", "no-such-compiler")
+    with pytest.raises(RuntimeError, match="NATIVE_DECODE"):
         build_dataset(cfg, "train")

@@ -583,8 +583,20 @@ def test_tester_evaluates_the_fada_checkpoint(fada_run):
     assert np.asarray(tester.confusion).sum() == 4 * 64 * 48
 
 
-def test_fada_trainer_refuses_the_knobs_that_wait(tmp_path):
+@pytest.mark.parametrize("opts,match", [
+    (("MODEL.WEIGHTS", "resnet18.pth"), "MODEL.WEIGHTS"),
+    (("DIST.SPATIAL_PARALLEL", "2"), "SPATIAL_PARALLEL"),
+    (("MODEL.S2D_MAX_CHANNELS", "16"), "S2D_MAX_CHANNELS"),
+], ids=lambda o: o[0] if isinstance(o, tuple) else "")
+def test_fada_trainer_refuses_the_knobs_that_wait(tmp_path, opts, match):
+    cfg = load_cfg(train_adv.build_parser().parse_args(_cli_opts(tmp_path, *opts)))
+    with pytest.raises(NotImplementedError, match=match):
+        train_adv.make_trainer("deeplab_fada", cfg)
+
+
+def test_fada_trainer_builds_under_async_checkpoints(tmp_path):
+    """SOLVER.ASYNC_CHECKPOINT waited until the parallelism slice."""
     cfg = load_cfg(train_adv.build_parser().parse_args(
         _cli_opts(tmp_path, "SOLVER.ASYNC_CHECKPOINT", "True")))
-    with pytest.raises(NotImplementedError, match="ASYNC_CHECKPOINT"):
-        train_adv.make_trainer("deeplab_fada", cfg)
+    trainer = train_adv.make_trainer("deeplab_fada", cfg)
+    assert trainer.ckpt_writer is not None and trainer.save_blocked_ms == []

@@ -496,11 +496,13 @@ def test_catalog_builds_synthetic_and_refuses_the_rest():
     with pytest.raises(RuntimeError, match="imagenet_train"):
         build_dataset(port_cfg("DATASETS.SOURCE_TRAIN", "imagenet_train", "AUG.NAME", "gald"),
                       "train")
-    with pytest.raises(NotImplementedError):
-        build_dataset(port_cfg("DATASETS.SOURCE_TRAIN", "synthetic_train",
-                               "DATA_PIPE.NATIVE_DECODE", "True"), "train")
-    with pytest.raises(NotImplementedError):
-        DataLoader(train, batch_size=2, process_shard=True)
+    # the parallelism slice: the native decoder, and a process's shard
+    assert build_dataset(port_cfg("DATASETS.SOURCE_TRAIN", "synthetic_train",
+                                  "DATA_PIPE.NATIVE_DECODE", "True"), "train").use_native_decode
+    shard = DataLoader(train, batch_size=2, process_shard=True, process_index=1,
+                       process_count=2, shuffle=False, drop_last=False)
+    assert [b["name"] for b in shard] == [["synthetic_00001", "synthetic_00003"]]
+    assert shard.left_out() == [4]
 
 
 def test_unported_step_knobs_and_families_raise():

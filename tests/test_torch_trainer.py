@@ -150,19 +150,69 @@ def test_prune_checkpoints(tmp_path):
 
 @pytest.mark.parametrize("opts", [
     ("MODEL.WEIGHTS", "hardnet68.pth"),
-    ("SOLVER.ASYNC_CHECKPOINT", "True"),
-    ("DIST.NUM_DEVICES", "4"),
     ("DIST.SPATIAL_PARALLEL", "2"),
-    ("DIST.INITIALIZE", "True"),
-    ("DATA_PIPE.NATIVE_DECODE", "True"),
     ("MODEL.DTYPE", "float16"),  # the kernels take float32 and bfloat16 only
     ("DEBUG.CHECKIFY", "True"),
     ("MODEL.NAME", "gald_hardnet85"),  # HarDNet85 waits (Queue 1 item 12)
+    ("MODEL.S2D_MAX_CHANNELS", "16"),  # the JAX package's exact rewrites wait
+    ("MODEL.SUBPIXEL_DECONV", "True"),
 ], ids=lambda o: o[0])
 def test_every_knob_that_waits_raises(tmp_path, opts):
     with pytest.raises(NotImplementedError):
         train_src.make_trainer("gald", _cfg(tmp_path, *opts))
     assert not list(tmp_path.glob("*.pth"))
+
+
+@pytest.mark.parametrize("opts", [
+    ("MODEL.S2D_MAX_CHANNELS", "16"),
+    ("MODEL.SUBPIXEL_DECONV", "True"),
+], ids=lambda o: o[0])
+def test_the_rewrites_that_wait_raise_in_the_tester_and_the_server(tmp_path, opts):
+    """``build_segmentor`` refuses them, so eval and serving do too."""
+    import logging
+
+    from rnd_semantic_segmentation_torch.serve.server import make_server
+
+    cfg = _cfg(tmp_path, *opts)
+    with pytest.raises(NotImplementedError, match=opts[0].split(".")[1]):
+        Tester(cfg, logging.getLogger("torch_trainer"))
+    with pytest.raises(NotImplementedError, match=opts[0].split(".")[1]):
+        make_server(cfg, {"name": "gald"}, logging.getLogger("torch_trainer"), port=0)
+
+
+@pytest.fixture
+def world_of_one(monkeypatch):
+    """``torchrun``'s variables for a world of one; the group it starts is
+    ended afterwards."""
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"), ("LOCAL_RANK", "0"),
+                       ("MASTER_ADDR", "127.0.0.1")):
+        monkeypatch.setenv(key, value)
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        monkeypatch.setenv("MASTER_PORT", str(sock.getsockname()[1]))
+    yield
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("opts", [
+    ("SOLVER.ASYNC_CHECKPOINT", "True"),
+    ("DIST.NUM_DEVICES", "1"),
+    ("DIST.INITIALIZE", "True"),
+    ("DATA_PIPE.NATIVE_DECODE", "True"),
+], ids=lambda o: o[0])
+def test_knobs_the_parallelism_slice_ported_build_a_trainer(tmp_path, world_of_one, opts):
+    """Async checkpoints, the DIST knobs (a world of one process here) and the
+    native decoder waited until the parallelism slice; they build a trainer
+    now.  DIST.NUM_DEVICES other than 0 or the world size raises."""
+    trainer = train_src.make_trainer("gald", _cfg(tmp_path, *opts))
+    assert (trainer.ckpt_writer is not None) == (opts[0] == "SOLVER.ASYNC_CHECKPOINT")
+    assert trainer.train_loader.dataset.use_native_decode == (opts[0] == "DATA_PIPE.NATIVE_DECODE")
+    assert torch.distributed.is_initialized() == (opts[0] == "DIST.INITIALIZE")
+    assert trainer.world == 1
+    with pytest.raises(ValueError, match="NUM_DEVICES"):
+        train_src.make_trainer("gald", _cfg(tmp_path, *opts, "DIST.NUM_DEVICES", "4"))
 
 
 @pytest.mark.parametrize("opts", [
