@@ -82,7 +82,7 @@ no result line on any failure.  Phases, each of which raises:
               adversarial CLI's parser and ``FadaTrainer``: 4 synthetic source
               images at 1280x720 and 4 shifted target images at 1024x512 a
               step, SGD at 2.5e-4 with the classifier at 10x, D on Adam at
-              1e-4, poly LR, for 6 steps; the four losses must be finite,
+              1e-4, poly LR, for 3 steps; the four losses must be finite,
               every parameter of both parts and of D move, no hand kernel
               launch; a step split into the generator's forwards and backward,
               the segmentor's update, D's forwards and backward and D's
@@ -195,7 +195,7 @@ no result line on any failure.  Phases, each of which raises:
               bfloat16 beside the same run pinned to float32, in one process,
               on the synthetic dataset: deeplabv2_r101_src.yaml and
               gald_src.yaml 6 at 1280x720, attn_src_kvasir.yaml (B2) 20 at
-              512, 4 steps (the first a warm-up); pranet_src_polyp.yaml 16 at
+              512, 3 steps (the first a warm-up); pranet_src_polyp.yaml 16 at
               the three rates, 2 batches; ms a step, peak memory, the losses,
               float32 parameters and every convolution's output in the run's
               type; the GALD runs launch #1 and #2 twice a step (the bfloat16
@@ -283,7 +283,21 @@ no result line on any failure.  Phases, each of which raises:
               augmentation, worker processes and native decode as written
               (the overrides are listed in ``phase_recipes_tpu``): images/s,
               data share, peak memory, the checkpoint's wait; the GALD
-              recipe launches #1 and #2 twice a step.
+              recipe launches #1 and #2 twice a step;
+ 44. ccnet    CCNet (models/seg_nets.py: ResNet-101, recurrence 2, 19 classes,
+              full width and depth, seeded weights, gamma 0.7) in float32:
+              3 train steps of 2 images at 769x769 (SGD, CE of main plus 0.4
+              x CE of dsn), then one eval forward of a 1024x2048 frame; #1
+              launches twice a forward and #2 twice a step, both held against
+              their plain versions on the operands the step fed them (Cq 64,
+              C 512, 97x97; #1 also at the frame's 128x256), the loss against
+              the plain core's, with their times, bounds and the masked-SDPA
+              yardstick; one train-mode forward each of GALDNet, PSPNet and
+              DualSeg at 769 and of Res2Net with GCNet blocks at 352;
+ 45. pretrained  MODEL.WEIGHTS: a seeded torchvision-layout ResNet-101 .pth
+              under the DeepLab source trainer (2 steps) and a hardnet68 one
+              under GALD FADA (one step): the backbone equals the file after
+              the load, the classifier keys skipped, the load's seconds.
 Every phase before train_bf16 pins MODEL.DTYPE float32 (``FLOAT32``).
 The online phases cut the datasets to their steps (``_FirstItems``); each
 earlier phase keeps its depth.
@@ -292,8 +306,9 @@ TARGET_INPUT_SIZE_TRAIN to 352 squared besides the data, the output and the
 run's length: the configs leave them at their defaults, to which the
 readers resize each item after the pra transform (ROADMAP Queue 3).
 Hand kernels lie on the GALD paths (#1 and #2: serving, training, FADA and
-online distillation, in float32 and in bfloat16, each rank of a world of two
-and the GALD TPU recipe; #1 also in int8 serving and the GALD export) and on the attn eval paths (#3: eval, serving, the bli_val
+online distillation, in float32 and in bfloat16, each rank of a world of two,
+the GALD TPU recipe and the GALD FADA run from a pretrained file; #1 also in
+int8 serving and the GALD export), on CCNet's (#1 and #2) and on the attn eval paths (#3: eval, serving, the bli_val
 evals, the online attn teacher, the last also in bfloat16, int8 eval and the
 attn export); no hand kernel lies on the
 DeepLab, VGG16 or PraNet paths, nor on attn training (source, FADA or the
@@ -310,7 +325,7 @@ train_pranet, eval_pranet, serve_pranet, train_fada_pranet, train_distill_online
 train_distill_online_gald, train_distill_online_polyp, device_aug, train_bf16,
 train_fada_bf16, distill_online_bf16, remat, quant_deeplab, quant_gald,
 quant_attn, export, inference_cli, dist_deeplab, dist_gald_2rank, dist_eval, async_ckpt,
-native_decode, recipes_tpu; device and build always run) and prints no result lines: an aid while
+native_decode, recipes_tpu, ccnet, pretrained; device and build always run) and prints no result lines: an aid while
 working on one path.  A phase before data_files that evaluates or serves a
 checkpoint makes a seeded one when the phase that trains it did not run; a
 phase after it that reads another's output (files, a checkpoint,
@@ -442,7 +457,7 @@ GALD_FADA_GEOMETRY = ("gald_hardnet68", 19, 5, (TRAIN_W, TRAIN_H), (SERVE_W, SER
                       0.5e-4, 1e-4)
 ATTN_FADA_GEOMETRY = (ATTN_MODEL, 2, 20, (ATTN_SIZE, ATTN_SIZE), (ATTN_SIZE, ATTN_SIZE),
                       1e-3, 1e-4)
-FADA_STEPS = {"deeplab": 6, "gald": 4, "attn": 4, "vgg16": 2}
+FADA_STEPS = {"deeplab": 3, "gald": 4, "attn": 4, "vgg16": 2}
 FADA_EVAL_IMAGES = 4
 # the paths on files (DATA_TREES): steps of FADA (12 GTA5 images, 4 a step),
 # of the distillation (12 Cityscapes images, 5 a step), of attn (two
@@ -3360,7 +3375,7 @@ def phase_device_aug(tmp: str, card: str) -> int:
 
 # -- bfloat16 training (MODEL.DTYPE) and rematerialisation --------------------------
 
-BF16_STEPS = 4                 # a run: one warm-up step and 3 timed
+BF16_STEPS = 3                 # a run: one warm-up step and 2 timed
 BF16_PRANET_BATCHES = 2        # each at the three rates: one warm-up batch, one timed
 BF16_ONLINE_STEPS = 3
 REMAT_STEPS = 4
@@ -3488,7 +3503,7 @@ def phase_train_bf16(tmp: str, card: str) -> dict:
     """Each family's own config at its default MODEL.DTYPE bfloat16 beside
     the same run at float32, in one process, on the synthetic dataset at the
     float32 phases' shapes: deeplab and gald 6 at 1280x720, attn B2 20 at
-    512, 4 steps (one warm-up); pranet 16 at the three rates, 2 batches.
+    512, 3 steps (one warm-up); pranet 16 at the three rates, 2 batches.
     The GALD runs launch kernels #1 and #2 twice a step each, in their
     bfloat16 instances in the bfloat16 run, and one bfloat16 step's
     gradients through them are held against the plain core
@@ -4713,6 +4728,413 @@ def _recipe_run(config: str, family: str, cfg, card: str) -> dict:
                         "wait_ms": list(trainer.save_blocked_ms)}}
 
 
+# CCNet (Huang et al., ICCV 2019; speedinghzl/CCNet): ResNet-101, 769x769
+# crops, 2 images a card, recurrence 2, the dsn loss at 0.4 (its published
+# Cityscapes setting); models/seg_nets.py CCNetSegModel at full width and depth
+CCNET_LAYERS, CCNET_SIDE, CCNET_BATCH, CCNET_STEPS = (3, 4, 23, 3), 769, 2, 3
+CCNET_EVAL = (1024, 2048)                 # one Cityscapes frame: a 128 x 256 map
+CCNET_TRAIN_CC_SHAPE = (CCNET_BATCH, 97, 97, 64, 512)
+CCNET_EVAL_CC_SHAPE = (1, 128, 256, 64, 512)
+CCNET_DSN_WEIGHT = 0.4
+CCNET_LOSS_TOLERANCE = 1e-4               # the step's loss, kernels against the plain core
+RES2NET_GC_SIDE = 352
+PRETRAINED_DEEPLAB_STEPS = 2
+
+
+class _CaptureCore:
+    """Wraps ``gcpa.cc_attention_core``: while ``on``, each call's q, k, v
+    and, through a hook on its output, the gradient that reaches it are kept,
+    so that kernels #1 and #2 can be held on the operands the model fed them."""
+
+    def __init__(self, real):
+        self.real, self.on, self.calls = real, False, []
+
+    def __call__(self, q, k, v):
+        out = self.real(q, k, v)
+        if self.on:
+            entry = {"q": q.detach().clone(), "k": k.detach().clone(), "v": v.detach().clone()}
+            self.calls.append(entry)
+            if out.requires_grad:
+                out.register_hook(lambda g, e=entry: e.__setitem__(
+                    "g", g.detach().contiguous().clone()))
+        return out
+
+
+def _ccnet_loss(outputs, label):
+    """This script's CCNet loss: CE (ignore 255) of ``main`` plus 0.4 x that of
+    ``dsn``, each upsampled bilinearly (align_corners=True) to the label."""
+    from rnd_semantic_segmentation_torch.losses import cross_entropy
+    from rnd_semantic_segmentation_torch.ops import resize_bilinear
+
+    size = label.shape[-2:]
+    main, dsn = (resize_bilinear(o.float(), size, align_corners=True) for o in outputs)
+    return cross_entropy(main, label) + CCNET_DSN_WEIGHT * cross_entropy(dsn, label)
+
+
+def _hold_kernels_on(tag: str, entry: dict, with_grad: bool) -> dict:
+    """Kernel #1 (and #2 when ``with_grad``) against the plain versions on
+    one call's captured operands; returns the errors."""
+    q, k, v = entry["q"], entry["k"], entry["v"]
+    out = ccattn.cc_attention_core_cuda(q, k, v)
+    ref = ccattn.cc_attention_core_plain(q, k, v)
+    err, ok = _within(out, ref, torch.float32)
+    energy = max(torch.einsum("bhwc,bkwc->bhwk", q, k).abs().max().item(),
+                 torch.einsum("bhwc,bhkc->bhwk", q, k).abs().max().item())
+    atol, rtol = TOLERANCE[torch.float32]
+    log(f"[{tag}] cc_attention_fwd on the captured {tuple(q.shape[:3])} Cq={q.shape[3]} "
+        f"C={v.shape[3]} operands (largest energy {energy:.1f}): max abs err {err:.3e} "
+        f"(tolerance {atol:g} + {rtol:g}*|plain|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"cc_attention_fwd disagrees with its plain version on the "
+                             f"{tag} operands: {err}")
+    result = {"fwd_err": err}
+    if with_grad:
+        g = entry["g"]
+        got = ccattn.cc_attention_core_bwd_cuda(q, k, v, g)
+        plain = ccattn.cc_attention_core_bwd_plain(q, k, v, g)
+        rel = BWD_TOLERANCE[torch.float32]
+        bwd_err, ok = 0.0, True
+        for o, p in zip(got, plain):
+            e = (o - p).abs().max().item()
+            bwd_err = max(bwd_err, e)
+            ok = ok and bool(torch.isfinite(o).all()) and e <= rel * p.abs().max().item()
+        log(f"[{tag}] cc_attention_bwd on the captured operands and upstream gradient "
+            f"(|g| max {g.abs().max().item():.3e}): max abs err {bwd_err:.3e} (tolerance "
+            f"{rel:g} x max|plain|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"cc_attention_bwd disagrees with its plain version on the "
+                                 f"{tag} operands: {bwd_err}")
+        result["bwd_err"] = bwd_err
+    return result
+
+
+def _time_cc_at(tag: str, entry: dict, with_grad: bool) -> dict:
+    """Device times (CUDA graph, events) of #1, its plain version and the
+    masked-SDPA yardstick (held against the plain version first) on the
+    captured operands, and of #2 and its plain version; with the bounds."""
+    q, k, v = entry["q"], entry["k"], entry["v"]
+    b, h, w, cq = q.shape
+    shape = (b, h, w, cq, v.shape[3])
+    reps, replays = (5, 4) if h * w > 20000 else (20, 10)
+    mask = cc_mask(h, w)
+    ref = ccattn.cc_attention_core_plain(q, k, v)
+    sdpa_err, sdpa_ok = _within(cc_sdpa(q, k, v, mask), ref, torch.float32)
+    if not sdpa_ok:
+        raise AssertionError(f"masked SDPA disagrees with the plain version at {shape}: "
+                             f"{sdpa_err}")
+    fwd = {"ms": graph_ms(lambda: ccattn.cc_attention_core_cuda(q, k, v), reps, replays),
+           "plain_ms": graph_ms(lambda: ccattn.cc_attention_core_plain(q, k, v), reps, replays),
+           "library_ms": graph_ms(lambda: cc_sdpa(q, k, v, mask), reps, replays)}
+    fwd["bound_ms"], fwd["bound_by"] = cc_bound(shape, torch.float32)
+    log(f"[{tag}] cc_attention_fwd at {shape} on {card_line()}: {fwd['ms'] * 1e3:.2f} us, "
+        f"bound {fwd['bound_ms'] * 1e3:.2f} us ({fwd['bound_by']}), plain version "
+        f"{fwd['plain_ms'] * 1e3:.2f} us, masked SDPA {fwd['library_ms'] * 1e3:.2f} us "
+        f"(max abs err {sdpa_err:.3e} against the plain version)")
+    _log_passes(ccattn.FWD_PASSES, _pass_us(lambda: ccattn.cc_attention_core_cuda(q, k, v),
+                                            "cc_attention_fwd_kernel", 2))
+    out = {"shape": list(shape), "fwd": fwd}
+    if with_grad:
+        g = entry["g"]
+        bwd = {"ms": graph_ms(lambda: ccattn.cc_attention_core_bwd_cuda(q, k, v, g),
+                              reps, replays),
+               "plain_ms": graph_ms(lambda: ccattn.cc_attention_core_bwd_plain(q, k, v, g),
+                                    reps, replays)}
+        bwd["bound_ms"], bwd["bound_by"] = cc_bwd_bound(shape, torch.float32)
+        log(f"[{tag}] cc_attention_bwd at {shape}: {bwd['ms'] * 1e3:.2f} us, bound "
+            f"{bwd['bound_ms'] * 1e3:.2f} us ({bwd['bound_by']}), plain version "
+            f"{bwd['plain_ms'] * 1e3:.2f} us")
+        _log_passes(ccattn.BWD_PASSES, _pass_us(
+            lambda: ccattn.cc_attention_core_bwd_cuda(q, k, v, g), "cc_attention_bwd_kernel", 3))
+        for i, name in enumerate(ccattn.BWD_PASSES):
+            log(f"[{tag}] cc_attention_bwd {shape}, pass {i + 1} ({name}): "
+                f"{ccattn.bwd_pass_info(shape, torch.float32, i)}")
+        out["bwd"] = bwd
+    for i, name in enumerate(ccattn.FWD_PASSES):
+        log(f"[{tag}] cc_attention_fwd {shape}, pass {i + 1} ({name}): "
+            f"{ccattn.fwd_pass_info(shape, torch.float32, i)}")
+    return out
+
+
+def _one_forward(tag: str, net, x: torch.Tensor, card: str) -> None:
+    """One train-mode forward (batch statistics, no gradients) of a research
+    net on the card: finite outputs, its ms, and no hand kernel."""
+    net = net.cuda().train()
+    _zero_kernel_counts()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net(x)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    outs = list(out.values()) if isinstance(out, dict) else list(out)
+    shapes = [tuple(o.shape) for o in outs]
+    if not all(bool(torch.isfinite(o).all()) for o in outs):
+        raise AssertionError(f"{tag}: outputs not finite")
+    log(f"[ccnet] {tag} train-mode forward of {tuple(x.shape)} on {card}: {ms:.1f} ms "
+        f"(one call, cuDNN's first at this shape), outputs {shapes}, finite")
+    _check_no_kernel(f"ccnet {tag}")
+
+
+def phase_ccnet(tmp: str, card: str) -> dict:
+    """CCNet at full width and depth (ResNet-101, recurrence 2, 19 classes,
+    seeded weights, gamma 0.7), float32, TF32 off: 3 train-mode steps of 2
+    images at 769x769 (SGD, the CE of main plus 0.4 x that of dsn), then one
+    eval forward of a 1024x2048 frame.  Kernel #1 launches twice a forward
+    and #2 twice a step; both are held against their plain versions on the
+    operands the first step fed them (and #1 on the eval forward's), and the
+    step's loss against the same step with the plain core.  Then one
+    train-mode forward each of GALDNet, PSPNet and DualSeg at 769 and of
+    Res2Net with GCNet blocks at 352 (no hand kernel)."""
+    from rnd_semantic_segmentation_torch.models.res2net import Res2Net
+    from rnd_semantic_segmentation_torch.models.seg_nets import (
+        CCNetSegModel,
+        DualSegNet,
+        GALDNetFull,
+        PSPNetFull,
+    )
+
+    t0 = time.perf_counter()
+    torch.manual_seed(0)
+    net = randomize_weights_(CCNetSegModel(19, recurrence=2, layers=CCNET_LAYERS), seed=0,
+                             gamma=0.7).cuda()
+    log(f"[ccnet] CCNetSegModel ResNet-101 {CCNET_LAYERS}, recurrence 2: "
+        f"{sum(p.numel() for p in net.parameters())} parameters, seeded in "
+        f"{time.perf_counter() - t0:.1f} s; attention Cq "
+        f"{net.head.cca.query_conv.out_channels}, C {net.head.cca.value_conv.out_channels}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(CCNET_BATCH, 3, CCNET_SIDE, CCNET_SIDE, device="cuda", generator=gen)
+    label = torch.randint(0, 19, (CCNET_BATCH, CCNET_SIDE, CCNET_SIDE), device="cuda",
+                          generator=gen)
+    label[:, :40] = 255  # a band of ignored pixels, as a crop's padding gives
+    opt = torch.optim.SGD(net.parameters(), lr=1e-2, momentum=0.9, weight_decay=5e-4)
+    capture = _CaptureCore(gcpa.cc_attention_core)
+    times, losses = [], []
+    with mock.patch.object(gcpa, "cc_attention_core", capture):
+        net.train()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_kernel_counts()
+        for step in range(CCNET_STEPS):
+            capture.on = step == 0
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            opt.zero_grad(set_to_none=True)
+            loss = _ccnet_loss(net(x), label)
+            loss.backward()
+            opt.step()
+            losses.append(loss.item())  # ends in a device sync
+            times.append((time.perf_counter() - tic) * 1e3)
+        capture.on = False
+        train_fwd, train_bwd = ccattn.KERNEL_LAUNCHES, ccattn.BWD_KERNEL_LAUNCHES
+        peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+        log(f"[ccnet] {CCNET_STEPS} train steps of {CCNET_BATCH} at {CCNET_SIDE}x{CCNET_SIDE} "
+            f"on {card}: losses {[round(v, 4) for v in losses]}, {np.median(times[1:]):.1f} "
+            f"ms/step (median of steps 2..{CCNET_STEPS}; first {times[0]:.0f} ms), peak "
+            f"memory {peak_mib:.0f} MiB, float32, TF32 off; launches cc_attention_fwd "
+            f"{train_fwd}, cc_attention_bwd {train_bwd}, fused_mbconv_fwd "
+            f"{mbconv.KERNEL_LAUNCHES}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"ccnet losses {losses}")
+        if (train_fwd, train_bwd, mbconv.KERNEL_LAUNCHES) != (2 * CCNET_STEPS,
+                                                              2 * CCNET_STEPS, 0):
+            raise AssertionError(f"ccnet launches {train_fwd}, {train_bwd} over "
+                                 f"{CCNET_STEPS} steps; want 2 and 2 a step")
+        train_calls = capture.calls
+        capture.calls = []
+
+        # the eval forward of one frame
+        frame = torch.randn(1, 3, *CCNET_EVAL, device="cuda", generator=gen)
+        net.eval()
+        _zero_kernel_counts()
+        capture.on = True
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            main, dsn = net(frame)
+            torch.cuda.synchronize()
+            eval_ms = (time.perf_counter() - tic) * 1e3
+        capture.on = False
+        eval_fwd = ccattn.KERNEL_LAUNCHES
+        eval_calls = capture.calls
+        finite = bool(torch.isfinite(main).all() and torch.isfinite(dsn).all())
+        log(f"[ccnet] eval forward of one {CCNET_EVAL[0]}x{CCNET_EVAL[1]} frame: "
+            f"{eval_ms:.1f} ms (one call), logits {tuple(main.shape)} and "
+            f"{tuple(dsn.shape)}, {'finite' if finite else 'NOT FINITE'}; launches "
+            f"cc_attention_fwd {eval_fwd}, cc_attention_bwd {ccattn.BWD_KERNEL_LAUNCHES}")
+        if not finite or (eval_fwd, ccattn.BWD_KERNEL_LAUNCHES) != (2, 0):
+            raise AssertionError(f"ccnet eval: finite {finite}, launches {eval_fwd}")
+        del main, dsn, frame
+
+    # the kernels on the operands the model fed them (not counted above)
+    if len(train_calls) != 2 or any("g" not in e for e in train_calls) or len(eval_calls) != 2:
+        raise AssertionError(f"captured {len(train_calls)} train and {len(eval_calls)} eval "
+                             f"calls")
+    errors = [_hold_kernels_on("ccnet train", e, True) for e in train_calls]
+    errors += [_hold_kernels_on("ccnet eval", e, False) for e in eval_calls]
+
+    # the step's loss with kernels against the plain core, same weights
+    net.train()
+    with torch.no_grad():
+        loss_k = _ccnet_loss(net(x), label).item()
+        with mock.patch.object(gcpa, "cc_attention_core", ccattn.cc_attention_core_plain):
+            before = ccattn.KERNEL_LAUNCHES
+            loss_p = _ccnet_loss(net(x), label).item()
+            if ccattn.KERNEL_LAUNCHES != before:
+                raise AssertionError("the plain-core forward launched the kernel")
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"[ccnet] train-mode loss with the kernels {loss_k:.6f}, with the plain core "
+        f"{loss_p:.6f}: relative difference {rel:.3e} (tolerance {CCNET_LOSS_TOLERANCE:g})")
+    if not rel <= CCNET_LOSS_TOLERANCE:
+        raise AssertionError(f"ccnet loss, kernels against plain core: {rel}")
+
+    timed = {"train": _time_cc_at("ccnet", train_calls[0], True),
+             "eval": _time_cc_at("ccnet", eval_calls[0], False)}
+    del net, opt, x, label, train_calls, eval_calls, capture
+    torch.cuda.empty_cache()
+
+    side = CCNET_SIDE
+    for name, cls in (("GALDNetFull", GALDNetFull), ("PSPNetFull", PSPNetFull),
+                      ("DualSegNet", DualSegNet)):
+        model = randomize_weights_(cls(19, layers=CCNET_LAYERS), seed=1)
+        _one_forward(name, model, torch.randn(CCNET_BATCH, 3, side, side, device="cuda",
+                                              generator=gen), card)
+        del model
+        torch.cuda.empty_cache()
+    _one_forward("Res2Net(gc_blocks=True)", randomize_weights_(Res2Net(gc_blocks=True), seed=2),
+                 torch.randn(CCNET_BATCH, 3, RES2NET_GC_SIDE, RES2NET_GC_SIDE, device="cuda",
+                             generator=gen), card)
+    torch.cuda.empty_cache()
+    log(f"[ccnet] phase in {time.perf_counter() - t0:.1f} s")
+    MEASURED["ccnet"] = {"step_ms": float(np.median(times[1:])), "peak_mib": peak_mib,
+                         "eval_ms": eval_ms, **timed}
+    worst_fwd = max(e["fwd_err"] for e in errors)
+    worst_bwd = max(e["bwd_err"] for e in errors if "bwd_err" in e)
+    return {"fwd": train_fwd + eval_fwd, "bwd": train_bwd, "timed": timed,
+            "fwd_err": worst_fwd, "bwd_err": worst_bwd}
+
+
+def _write_published(path: str, sd: dict, extra: dict) -> float:
+    """``sd`` and the ``extra`` keys the loaders skip, written as one ``.pth``;
+    returns its size in MB."""
+    torch.save({**{k: v.detach().cpu() for k, v in sd.items()}, **extra}, path)
+    return os.path.getsize(path) / 1e6
+
+
+def _timed_loads():
+    """Patches the trainers' ``load_pretrained_backbone`` to log its seconds."""
+    from rnd_semantic_segmentation_torch.train import trainer as trainer_mod
+
+    real, seconds = trainer_mod.load_pretrained_backbone, []
+
+    def timed(*args):
+        tic = time.perf_counter()
+        out = real(*args)
+        seconds.append(time.perf_counter() - tic)
+        return out
+    return mock.patch.object(trainer_mod, "load_pretrained_backbone", timed), seconds
+
+
+def _check_loaded(tag: str, module, prefix: str, published: dict) -> None:
+    sd = module.state_dict()
+    held = [k for k in published if not k.startswith(("fc.", "base.19"))
+            and "num_batches_tracked" not in k]
+    wrong = [k for k in held if not torch.equal(sd[prefix + k].cpu(), published[k].cpu())]
+    skipped = [k for k in published if k not in held]
+    if wrong or any(prefix + k in sd for k in skipped if "num_batches_tracked" not in k):
+        raise AssertionError(f"{tag}: {len(wrong)} tensors differ from the file, e.g. "
+                             f"{wrong[:3]}")
+    log(f"[pretrained] {tag}: all {len(held)} backbone tensors equal the file's after the "
+        f"load; {len(skipped)} keys skipped ({sorted(skipped)[:4]}...)")
+
+
+def phase_pretrained(tmp: str, card: str) -> dict:
+    """MODEL.WEIGHTS on the card: a torchvision-layout ResNet-101 ``.pth``
+    from seeded weights (about 170 MB, in the temporary directory) under
+    ``cli.train_src`` with configs/deeplabv2_r101_src.yaml for 2 steps, and a
+    hardnet68-layout ``.pth`` under ``cli.train_adv`` with
+    configs/gald_adv.yaml (GALD FADA) for one step; each trainer's backbone
+    must equal the file after the load, the classifier keys skipped, and the
+    steps' losses be finite.  GALD FADA launches #1 4 times and #2 twice."""
+    from rnd_semantic_segmentation_torch.models.aspp import ResNetFeatureExtractor
+    from rnd_semantic_segmentation_torch.models.gcpa import GCPAEncoder
+
+    out = {}
+    resnet = randomize_weights_(ResNetFeatureExtractor("resnet101", freeze_bn=False), seed=3)
+    published = {k[len("backbone."):]: v for k, v in resnet.state_dict().items()}
+    pth = os.path.join(tmp, "pretrained", "resnet101.pth")
+    os.makedirs(os.path.dirname(pth), exist_ok=True)
+    mb = _write_published(pth, published, {"fc.weight": torch.randn(1000, 2048) * 0.01,
+                                            "fc.bias": torch.zeros(1000)})
+    patch, seconds = _timed_loads()
+    batch = DEEPLAB_GEOMETRY[3]
+    with patch:
+        cfg = load_cfg(train_src.build_parser().parse_args(_deeplab_opts(
+            os.path.join(tmp, "pretrained", "deeplab"), "MODEL.WEIGHTS", pth,
+            "DATASETS.SYNTHETIC_LENGTH", str(batch * PRETRAINED_DEEPLAB_STEPS),
+            "SOLVER.EPOCHS", "1", "SOLVER.CHECKPOINT_PERIOD", "2")))
+        trainer = train_src.make_trainer("deeplab", cfg, logger=_stderr_logger(
+            "chip_smoke.pretrained", logging.WARNING))
+    log(f"[pretrained] deeplab_resnet101: {pth} ({mb:.0f} MB, torchvision layout, FrozenBN "
+        f"statistics) loaded in {seconds[-1]:.2f} s")
+    _check_loaded("deeplab_resnet101", trainer.spec.modules["feature_extractor"], "backbone.",
+                  published)
+    _zero_kernel_counts()
+    trainer.train()
+    if trainer.state.step != PRETRAINED_DEEPLAB_STEPS or not all(np.isfinite(trainer.loss_data)):
+        raise AssertionError(f"pretrained deeplab: {trainer.state.step} steps, losses "
+                             f"{trainer.loss_data}")
+    log(f"[pretrained] deeplab {trainer.state.step} steps of {batch}: losses "
+        f"{[round(v, 4) for v in trainer.loss_data]}")
+    _check_no_kernel("pretrained deeplab")
+    out["deeplab_load_s"] = seconds[-1]
+    del trainer, resnet
+    torch.cuda.empty_cache()
+
+    encoder = randomize_weights_(GCPAEncoder(), seed=4)
+    published = {k[len("hardnet."):]: v for k, v in encoder.state_dict().items()}
+    pth = os.path.join(tmp, "pretrained", "hardnet68.pth")
+    mb = _write_published(pth, published, {"base.19.3.weight": torch.randn(1000, 1024) * 0.01,
+                                            "base.19.3.bias": torch.zeros(1000)})
+    half = GALD_FADA_GEOMETRY[2] // 2
+    patch, seconds = _timed_loads()
+    with patch:
+        cfg = load_cfg(train_adv.build_parser().parse_args(_fada_opts(
+            "gald_adv.yaml", os.path.join(tmp, "pretrained", "gald_fada"), "MODEL.WEIGHTS", pth,
+            "DATASETS.SYNTHETIC_LENGTH", str(half), "SOLVER.CHECKPOINT_PERIOD", "2")))
+        trainer = train_adv.make_trainer("gald_fada", cfg, logger=_stderr_logger(
+            "chip_smoke.pretrained", logging.WARNING))
+    log(f"[pretrained] gald_hardnet68 FADA: {pth} ({mb:.0f} MB, hardnet68 layout) loaded in "
+        f"{seconds[-1]:.2f} s")
+    _check_loaded("gald_hardnet68", trainer.spec.modules["encoder"], "hardnet.", published)
+    _zero_kernel_counts()
+    trainer.train()
+    fwd, bwd = ccattn.KERNEL_LAUNCHES, ccattn.BWD_KERNEL_LAUNCHES
+    for key, values in trainer.series.items():
+        if not all(np.isfinite(values)):
+            raise AssertionError(f"pretrained gald fada {key} {values}")
+    log(f"[pretrained] gald FADA {trainer.state.step} step of {half} + {half}: "
+        f"{ {k: [round(v, 4) for v in vals] for k, vals in trainer.series.items()} }; launches "
+        f"cc_attention_fwd {fwd}, cc_attention_bwd {bwd}, fused_mbconv_fwd "
+        f"{mbconv.KERNEL_LAUNCHES}")
+    if (fwd, bwd, mbconv.KERNEL_LAUNCHES) != (4 * trainer.state.step, 2 * trainer.state.step, 0):
+        raise AssertionError(f"pretrained gald fada launches {fwd}, {bwd}")
+    out.update({"gald_load_s": seconds[-1], "fwd": fwd, "bwd": bwd})
+    MEASURED["pretrained"] = out
+    return out
+
+
+def _run_phase(name: str, tmp, card: str, *args):
+    """Runs ``phase_<name>``, frees the allocator's cache and logs the
+    phase's seconds."""
+    t0 = time.perf_counter()
+    fn = globals()[f"phase_{name}"]
+    out = fn(tmp, card, *args) if fn.__code__.co_argcount else fn()
+    torch.cuda.empty_cache()
+    log(f"[time] {name}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--phases", default="", help="comma-separated phases to run "
@@ -4729,92 +5151,56 @@ def main(argv=None) -> int:
     if only:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             for name in only:
-                fn = globals()[f"phase_{name}"]
-                fn(tmp, card) if fn.__code__.co_argcount else fn()
-                torch.cuda.empty_cache()
+                _run_phase(name, tmp, card)
         log(f"[done] phases {only} in {time.perf_counter() - t0:.1f} s; no result lines")
         return 0
-    fwd = phase_kernels()
-    bwd = phase_kernels_bwd()
-    mb = phase_kernels_mbconv()
+    fwd = _run_phase("kernels", None, card)
+    bwd = _run_phase("kernels_bwd", None, card)
+    mb = _run_phase("kernels_mbconv", None, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        serve_launches = phase_serve(tmp, card)
-        torch.cuda.empty_cache()
-        train_fwd_launches, train_bwd_launches = phase_train(tmp, card)
-        torch.cuda.empty_cache()
-        eval_attn_launches = phase_eval_attn(tmp, card)
-        torch.cuda.empty_cache()
-        serve_attn_launches = phase_serve_attn(tmp, card)
-        torch.cuda.empty_cache()
-        deeplab_launches = phase_train_deeplab(tmp, card)
-        torch.cuda.empty_cache()
-        deeplab_launches += phase_eval_deeplab(tmp, card)
-        torch.cuda.empty_cache()
-        deeplab_launches += phase_serve_deeplab(tmp, card)
-        torch.cuda.empty_cache()
-        train_attn_launches, eval_attn_trained_launches = phase_train_attn(tmp, card)
-        torch.cuda.empty_cache()
-        fada_launches = phase_train_fada_deeplab(tmp, card)
-        torch.cuda.empty_cache()
-        fada_gald_fwd, fada_gald_bwd = phase_train_fada_gald(tmp, card)
-        torch.cuda.empty_cache()
-        fada_attn_launches = phase_train_fada_attn(tmp, card)
-        torch.cuda.empty_cache()
-        fada_launches += phase_fada_vgg16(tmp, card)
-        torch.cuda.empty_cache()
-        phase_data_files(tmp, card)
-        file_launches = phase_train_fada_files(tmp, card)
-        torch.cuda.empty_cache()
-        file_launches += phase_saveres_cityscapes(tmp, card)
-        torch.cuda.empty_cache()
-        file_launches += phase_train_distill_files(tmp, card)
-        torch.cuda.empty_cache()
-        bli_launches = phase_train_attn_files(tmp, card)
-        torch.cuda.empty_cache()
-        pranet_launches = phase_train_pranet(tmp, card)
-        torch.cuda.empty_cache()
-        pranet_launches += phase_eval_pranet(tmp, card)
-        torch.cuda.empty_cache()
-        pranet_launches += phase_serve_pranet(tmp, card)
-        torch.cuda.empty_cache()
-        pranet_launches += phase_train_fada_pranet(tmp, card)
-        torch.cuda.empty_cache()
-        online_launches = phase_train_distill_online(tmp, card)
-        torch.cuda.empty_cache()
-        online_gald_fwd, online_gald_bwd = phase_train_distill_online_gald(tmp, card)
-        torch.cuda.empty_cache()
-        online_polyp_launches = phase_train_distill_online_polyp(tmp, card)
-        torch.cuda.empty_cache()
-        device_aug_launches = phase_device_aug(tmp, card)
-        torch.cuda.empty_cache()
-        bf16_fwd, bf16_bwd = phase_train_bf16(tmp, card)
-        torch.cuda.empty_cache()
-        fada_bf16_launches = phase_train_fada_bf16(tmp, card)
-        torch.cuda.empty_cache()
-        online_bf16_fwd, online_bf16_bwd, online_bf16_fused = phase_distill_online_bf16(tmp, card)
-        torch.cuda.empty_cache()
-        phase_remat(tmp, card)
-        torch.cuda.empty_cache()
-        quant_deeplab_launches = phase_quant_deeplab(tmp, card)
-        torch.cuda.empty_cache()
-        quant_gald_launches = phase_quant_gald(tmp, card)
-        torch.cuda.empty_cache()
-        quant_attn_launches = phase_quant_attn(tmp, card)
-        torch.cuda.empty_cache()
-        exported = phase_export(tmp, card)
-        torch.cuda.empty_cache()
-        inference_cli_launches = phase_inference_cli(tmp, card)
-        torch.cuda.empty_cache()
-        phase_dist_deeplab(tmp, card)
-        torch.cuda.empty_cache()
-        dist_gald_fwd, dist_gald_bwd = phase_dist_gald_2rank(tmp, card)
-        torch.cuda.empty_cache()
-        dist_eval_launches = phase_dist_eval(tmp, card)
-        torch.cuda.empty_cache()
-        phase_async_ckpt(tmp, card)
-        torch.cuda.empty_cache()
-        native_built = phase_native_decode(tmp, card)
-        recipe_fwd, recipe_bwd, recipe_mbconv = phase_recipes_tpu(tmp, card, native_built)
+        serve_launches = _run_phase("serve", tmp, card)
+        train_fwd_launches, train_bwd_launches = _run_phase("train", tmp, card)
+        eval_attn_launches = _run_phase("eval_attn", tmp, card)
+        serve_attn_launches = _run_phase("serve_attn", tmp, card)
+        deeplab_launches = _run_phase("train_deeplab", tmp, card)
+        deeplab_launches += _run_phase("eval_deeplab", tmp, card)
+        deeplab_launches += _run_phase("serve_deeplab", tmp, card)
+        train_attn_launches, eval_attn_trained_launches = _run_phase("train_attn", tmp, card)
+        fada_launches = _run_phase("train_fada_deeplab", tmp, card)
+        fada_gald_fwd, fada_gald_bwd = _run_phase("train_fada_gald", tmp, card)
+        fada_attn_launches = _run_phase("train_fada_attn", tmp, card)
+        fada_launches += _run_phase("fada_vgg16", tmp, card)
+        _run_phase("data_files", tmp, card)
+        file_launches = _run_phase("train_fada_files", tmp, card)
+        file_launches += _run_phase("saveres_cityscapes", tmp, card)
+        file_launches += _run_phase("train_distill_files", tmp, card)
+        bli_launches = _run_phase("train_attn_files", tmp, card)
+        pranet_launches = _run_phase("train_pranet", tmp, card)
+        pranet_launches += _run_phase("eval_pranet", tmp, card)
+        pranet_launches += _run_phase("serve_pranet", tmp, card)
+        pranet_launches += _run_phase("train_fada_pranet", tmp, card)
+        online_launches = _run_phase("train_distill_online", tmp, card)
+        online_gald_fwd, online_gald_bwd = _run_phase("train_distill_online_gald", tmp, card)
+        online_polyp_launches = _run_phase("train_distill_online_polyp", tmp, card)
+        device_aug_launches = _run_phase("device_aug", tmp, card)
+        bf16_fwd, bf16_bwd = _run_phase("train_bf16", tmp, card)
+        fada_bf16_launches = _run_phase("train_fada_bf16", tmp, card)
+        online_bf16_fwd, online_bf16_bwd, online_bf16_fused = _run_phase(
+            "distill_online_bf16", tmp, card)
+        _run_phase("remat", tmp, card)
+        quant_deeplab_launches = _run_phase("quant_deeplab", tmp, card)
+        quant_gald_launches = _run_phase("quant_gald", tmp, card)
+        quant_attn_launches = _run_phase("quant_attn", tmp, card)
+        exported = _run_phase("export", tmp, card)
+        inference_cli_launches = _run_phase("inference_cli", tmp, card)
+        _run_phase("dist_deeplab", tmp, card)
+        dist_gald_fwd, dist_gald_bwd = _run_phase("dist_gald_2rank", tmp, card)
+        dist_eval_launches = _run_phase("dist_eval", tmp, card)
+        _run_phase("async_ckpt", tmp, card)
+        native_built = _run_phase("native_decode", tmp, card)
+        recipe_fwd, recipe_bwd, recipe_mbconv = _run_phase("recipes_tpu", tmp, card, native_built)
+        ccnet = _run_phase("ccnet", tmp, card)
+        pretrained = _run_phase("pretrained", tmp, card)
     dist_launches = {"launches_dist_deeplab": 0, "launches_dist_eval": dist_eval_launches,
                      "launches_async_ckpt": 0}
     quant_launches = {"launches_quant_deeplab": quant_deeplab_launches,
@@ -4825,9 +5211,10 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
         "launches": (serve_launches + train_fwd_launches + fada_gald_fwd + online_gald_fwd
                      + bf16_fwd + online_bf16_fwd + quant_gald_launches + dist_gald_fwd
-                     + recipe_fwd),
+                     + recipe_fwd + ccnet["fwd"] + pretrained["fwd"]),
         **dist_launches, "launches_dist_gald_2rank": dist_gald_fwd,
-        "launches_recipes_tpu": recipe_fwd,
+        "launches_recipes_tpu": recipe_fwd, "launches_ccnet": ccnet["fwd"],
+        "launches_pretrained": pretrained["fwd"],
         **quant_launches, "launches_quant_gald": quant_gald_launches, "launches_quant_attn": 0,
         "launches_export_gald_call": exported["gald_float32"]["cc_launches"],
         "launches_serve": serve_launches, "launches_train": train_fwd_launches,
@@ -4844,14 +5231,21 @@ def main(argv=None) -> int:
         "shape": list(MAIN_CC_SHAPE),
         "at_train_shape": {**fwd[TRAIN_CC_SHAPE, torch.float32], "shape": list(TRAIN_CC_SHAPE)},
         "bf16": {**fwd[TRAIN_CC_SHAPE, torch.bfloat16], "shape": list(TRAIN_CC_SHAPE)},
+        "at_ccnet_train_shape": {**ccnet["timed"]["train"]["fwd"],
+                                 "max_abs_err": ccnet["fwd_err"],
+                                 "shape": ccnet["timed"]["train"]["shape"]},
+        "at_ccnet_eval_shape": {**ccnet["timed"]["eval"]["fwd"],
+                                "shape": ccnet["timed"]["eval"]["shape"]},
     }, {
         "name": "cc_attention_bwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/ccattn_bwd.cu",
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
         "launches": (train_bwd_launches + fada_gald_bwd + online_gald_bwd + bf16_bwd
-                     + online_bf16_bwd + dist_gald_bwd + recipe_bwd),
+                     + online_bf16_bwd + dist_gald_bwd + recipe_bwd + ccnet["bwd"]
+                     + pretrained["bwd"]),
         **dist_launches, "launches_dist_gald_2rank": dist_gald_bwd,
-        "launches_recipes_tpu": recipe_bwd,
+        "launches_recipes_tpu": recipe_bwd, "launches_ccnet": ccnet["bwd"],
+        "launches_pretrained": pretrained["bwd"],
         "launches_train": train_bwd_launches,
         "launches_deeplab": deeplab_launches, "launches_fada_gald": fada_gald_bwd,
         "launches_fada_deeplab": fada_launches, "launches_files": file_launches,
@@ -4862,6 +5256,9 @@ def main(argv=None) -> int:
         "launches_remat": 0, **quant_launches, "launches_quant_gald": 0,
         "launches_quant_attn": 0, **bwd, "library_ms": None,
         "shape": list(TRAIN_CC_SHAPE),
+        "at_ccnet_train_shape": {**ccnet["timed"]["train"]["bwd"], "library_ms": None,
+                                 "max_abs_err": ccnet["bwd_err"],
+                                 "shape": ccnet["timed"]["train"]["shape"]},
     }, {
         "name": "fused_mbconv_fwd", "route": "cuda",
         "source": "rnd_semantic_segmentation_torch/ops/csrc/mbconv_fwd.cu",
@@ -4870,6 +5267,7 @@ def main(argv=None) -> int:
                      + bli_launches + online_polyp_launches + device_aug_launches
                      + online_bf16_fused + quant_attn_launches + recipe_mbconv),
         **dist_launches, "launches_dist_gald_2rank": 0, "launches_recipes_tpu": recipe_mbconv,
+        "launches_ccnet": 0, "launches_pretrained": 0,
         **quant_launches, "launches_quant_gald": 0, "launches_quant_attn": quant_attn_launches,
         "launches_export_attn_call": exported["attn_float32"]["mbconv_launches"],
         "launches_eval_attn": eval_attn_launches,

@@ -33,6 +33,15 @@ variant: its ``model`` part holds the attn encoder and decoder, under
 ``encoder``/``decoder`` scopes in flax and ``encoder.``/``decoder.`` key
 prefixes in torch.
 
+``research_state_dict_from_flax`` and ``research_flax_from_state_dict`` are
+the pair for one module of the research zoo (models/contextagg.py, zoo.py,
+seg_nets.py, the GALD blocks of gcpa.py, ``Res2Net`` with its GCNet
+blocks), by class name (``RESEARCH_RULES``): Dense kernels become Linear
+weights or 1x1 ``Conv1d`` weights (O, I, 1), the GCNet LayerNorm's affine
+(C, 1, 1) and HolisticAttention's kernel (1, 1, 31, 31).
+``PRETRAINED_LAYOUTS`` says where a published backbone ``.pth`` lands in
+each family's parts (MODEL.WEIGHTS, ckpt/pretrained.py).
+
 ``load_reference_checkpoint`` reads the model parts of a reference-layout
 ``.pth`` (``{"encoder": sd, "decoder": sd}``, with or without the optimizer
 states, epoch and step a training checkpoint adds);
@@ -132,8 +141,139 @@ _CRANET_RULES = [
     (r"downsample_conv$", "downsample.0"),
     (r"downsample_bn$", "downsample.1"),
 ] + _PRANET_HEAD_RULES
+# The research zoo (models/contextagg.py, zoo.py, seg_nets.py and the GCNet
+# blocks of Res2Net): one table per top-level module, by class name.  The
+# reference's Sequentials: conva/convb/bottleneck (conv 0, BN 1, the
+# classifier at bottleneck.3), GALDBlock's down (conv 0, BN 1), DualGCN's
+# local (convs at 0, 2, 4, BNs at 1, 3, 5), out and final (conv 0, BN 1),
+# GCNet's channel transforms (conv 0, LayerNorm 1, conv 3), PSPModule's
+# stages (pool 0, conv 1, BN 2); the deep-stem backbone's attributes sit on
+# the net (``backbone/stem_conv0`` -> ``conv1``, ``backbone/bn1``, the third
+# stem norm, -> ``bn3``) and the dsn's classifier at dsn.3.  Everything else
+# keeps its JAX scope.
+_HEAD_SEQ_RULES = [
+    (r"(^|/)(conva|convb|bottleneck)_conv$", r"\1\2/0"),
+    (r"(^|/)(conva|convb|bottleneck)_bn$", r"\1\2/1"),
+    (r"(^|/)classifier$", r"\1bottleneck/3"),
+]
+_GALD_BLOCK_RULES = [
+    (r"(^|/)down_conv$", r"\1down/0"),
+    (r"(^|/)down_bn$", r"\1down/1"),
+    (r"dconv(\d)_conv$", r"dconv\1/0"),
+    (r"dconv(\d)_bn$", r"dconv\1/1"),
+]
+_GCB_RULES = [
+    (r"channel_(add|mul)_0$", r"channel_\1_conv/0"),
+    (r"channel_(add|mul)_ln$", r"channel_\1_conv/1"),
+    (r"channel_(add|mul)_1$", r"channel_\1_conv/3"),
+]
+_DUALGCN_RULES = [
+    (r"local_conv(\d)$", lambda m: f"local/{2 * int(m.group(1))}"),
+    (r"local_bn(\d)$", lambda m: f"local/{2 * int(m.group(1)) + 1}"),
+    (r"(^|/)(out|final)_conv$", r"\1\2/0"),
+    (r"(^|/)(out|final)_bn$", r"\1\2/1"),
+]
+_PSP_RULES = [
+    (r"stage(\d+)_conv$", r"stages/\1/1"),
+    (r"stage(\d+)_bn$", r"stages/\1/2"),
+]
+_SEG_BACKBONE_RULES = [
+    (r"^(backbone/)?bn1$", "bn3"),
+    (r"^(backbone/)?stem_conv(\d)$", lambda m: f"conv{int(m.group(2)) + 1}"),
+    (r"^(backbone/)?stem_bn(\d)$", lambda m: f"bn{int(m.group(2)) + 1}"),
+    (r"^backbone/", ""),
+    (r"layer(\d+)_(\d+)", r"layer\1/\2"),
+    (r"downsample_conv$", "downsample/0"),
+    (r"downsample_bn$", "downsample/1"),
+]
+_DSN_RULES = [(r"^dsn/conv$", "dsn/0"), (r"^dsn/bn$", "dsn/1"), (r"^dsn/cls$", "dsn/3")]
+_RES2NET_RULES = [
+    (r"^stem_conv0$", "conv1/0"),
+    (r"^stem_bn0$", "conv1/1"),
+    (r"^stem_conv1$", "conv1/3"),
+    (r"^stem_bn1$", "conv1/4"),
+    (r"^stem_conv2$", "conv1/6"),
+    (r"layer(\d+)_(\d+)", r"layer\1/\2"),
+    (r"convs_(\d+)$", r"convs/\1"),
+    (r"bns_(\d+)$", r"bns/\1"),
+    (r"downsample_conv$", "downsample/1"),
+    (r"downsample_bn$", "downsample/2"),
+] + _GCB_RULES
+_SLASH = [(r"/", ".")]
+RESEARCH_RULES = {
+    "SpatialCGNL": _SLASH,
+    "GALDBlock": _GALD_BLOCK_RULES + _SLASH,
+    "CA": _SLASH,
+    "SRM": _SLASH,
+    "SA": _SLASH,
+    "SmallLocalAttenModule": _GALD_BLOCK_RULES + _SLASH,
+    "GALDHead": _HEAD_SEQ_RULES + _GALD_BLOCK_RULES + _SLASH,
+    "GCPAGALDNet": _GALD_BLOCK_RULES + _DECODER_RULES[:-1] + _PRANET_RULES,
+    "PSPModule": _PSP_RULES + _HEAD_SEQ_RULES + _SLASH,
+    "ContextBlock2d": _GCB_RULES + _SLASH,
+    "SNLBlock2d": _SLASH,
+    "GCHead": _HEAD_SEQ_RULES + _GCB_RULES + _SLASH,
+    "HolisticAttention": _SLASH,
+    "NLBlockND": _SLASH,
+    "A2Net": _SLASH,
+    "PyramidSelfAttention": _SLASH,
+    "APNB": _SLASH,
+    "AFNB": _SLASH,
+    "SpatialGCN": _DUALGCN_RULES + _SLASH,
+    "DualGCN": _DUALGCN_RULES + _SLASH,
+    "DualGCNHead": _HEAD_SEQ_RULES + _DUALGCN_RULES + _SLASH,
+    "SpatialCGNLx": _SLASH,
+    "RCCAModule": _HEAD_SEQ_RULES + _SLASH,
+    "SpatialNL": _SLASH,
+    "SEBlock": _SLASH,
+    "Res2Net": _RES2NET_RULES + _SLASH,
+    "DilatedSegBackbone": _SEG_BACKBONE_RULES + _SLASH,
+    "GALDNetFull": _SEG_BACKBONE_RULES + _DSN_RULES + _HEAD_SEQ_RULES + _GALD_BLOCK_RULES
+    + _SLASH,
+    "CCNetSegModel": _SEG_BACKBONE_RULES + _DSN_RULES + _HEAD_SEQ_RULES + _SLASH,
+    "PSPNetFull": _SEG_BACKBONE_RULES + _DSN_RULES
+    + [(r"^head/", "head/0/"), (r"^cls$", "head/1")] + _PSP_RULES + _HEAD_SEQ_RULES + _SLASH,
+    "PSPHead": _SEG_BACKBONE_RULES + _PSP_RULES + _HEAD_SEQ_RULES + _SLASH,
+    "DualSegNet": _SEG_BACKBONE_RULES + _DSN_RULES + _HEAD_SEQ_RULES + _DUALGCN_RULES
+    + _SLASH,
+}
+# torch key -> the port's shape of a leaf the JAX package stores flatter: the
+# graph convolutions' Dense kernels are 1x1 Conv1d weights (O, I, 1), the
+# GCNet LayerNorm's affine is (C, 1, 1), the gaussian kernel (1, 1, 31, 31)
+_RESEARCH_SHAPES = [
+    (r"(^|\.)conv_(wg|adj)\.weight$", lambda shape: shape + (1,)),
+    (r"channel_(add|mul)_conv\.1\.(weight|bias)$", lambda shape: shape + (1, 1)),
+    (r"(^|\.)gaussian_kernel$", lambda shape: (1, 1) + shape),
+]
+# MODEL.WEIGHTS (ckpt/pretrained.py): a backbone's published ``.pth`` laid
+# over a fresh model.  The port's parts keep the reference's keys, so a
+# file key lands at ``prefix + key`` in its part, after the renames; a
+# rename to None marks a key that has no home.  Keys holding any of ``skip``
+# are dropped, as by the JAX ``load_pretrained_backbone``, beside
+# PRETRAINED_SKIP.  Per (family, backbone kind): (part, prefix, skip, renames).
+PRETRAINED_SKIP = ("num_batches_tracked", "fc.", "_fc.")
+PRETRAINED_LAYOUTS = {
+    # torchvision ResNet, under the feature extractor's ``backbone``
+    ("deeplab", "resnet"): ("feature_extractor", "backbone.", (), ()),
+    # torchvision VGG16: ``features`` as in the port; its classifier dropped
+    ("deeplab", "vgg16"): ("feature_extractor", "", ("classifier.",), ()),
+    # hardnet68.pth: ``base.N``; base.19 is its ImageNet classifier
+    ("gald", "hardnet68"): ("encoder", "hardnet.", ("base.19",), ()),
+    # Res2Net50-v1b: the deep stem ``conv1.0-6`` and the shortcut
+    # ``downsample.1`` (conv), ``downsample.2`` (BN) after its pool
+    ("pranet", "res2net50"): ("model", "resnet.", (), ()),
+    # the same layout read into the CRANet ResNet, whose shortcut is
+    # torchvision's: the conv at 0, the BN at 1, and no pool
+    ("pranet", "resnet50"): ("model", "resnet.", (), (
+        (r"\.downsample\.0\.", None),
+        (r"\.downsample\.1\.", ".downsample.0."),
+        (r"\.downsample\.2\.", ".downsample.1."))),
+    # efficientnet-pytorch: ``_conv_stem``, ``_blocks.N._depthwise_conv``
+    ("attn", "efficientnet"): ("encoder", "encoder.", (), ()),
+    ("attnwrap", "efficientnet"): ("model", "encoder.encoder.", (), ()),
+}
 _PARAM_LEAVES = {"kernel": "weight", "scale": "weight", "bias": "bias",
-                 "gamma": "gamma"}
+                 "gamma": "gamma", "gaussian_kernel": "gaussian_kernel"}
 _STAT_LEAVES = {"mean": "running_mean", "var": "running_var"}
 _FROZEN_LEAVES = {"weight": "weight", "bias": "bias", "mean": "running_mean",
                   "var": "running_var"}
@@ -258,30 +398,41 @@ def conv_scopes(family: str, part: str, names, convs) -> Dict[str, str]:
     return out
 
 
+def _key(prefix: str, leaf: str) -> str:
+    return f"{prefix}.{leaf}" if prefix else leaf
+
+
 def _state_dict_from_flax(variables: Mapping, rules,
-                          transposed_conv_paths: Tuple[str, ...] = ()
+                          transposed_conv_paths: Tuple[str, ...] = (), shapes=()
                           ) -> Dict[str, torch.Tensor]:
+    """``shapes``: (torch key pattern, f(shape) -> the port's shape) for the
+    leaves the port holds with more (singleton) axes."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables["params"]):
         arr = np.asarray(value, dtype=np.float32)
         prefix = _torch_prefix(path[:-1], rules)
-        if path[-1] == "kernel":
+        if path[-1] == "kernel" and arr.ndim == 2:
+            arr = arr.T  # Dense (I, O) -> Linear (O, I)
+        elif path[-1] == "kernel":
             if any(re.search(p, prefix) for p in transposed_conv_paths):
                 # flipped (kh, kw, I, O) -> (I, O, kh, kw), flipped back
                 arr = np.transpose(arr, (2, 3, 0, 1))[:, :, ::-1, ::-1]
             else:
                 arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-        key = f"{prefix}.{_PARAM_LEAVES[path[-1]]}"
+        key = _key(prefix, _PARAM_LEAVES[path[-1]])
+        for pat, shape in shapes:
+            if re.search(pat, key):
+                arr = arr.reshape(shape(arr.shape))
         sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
     for path, value in _flatten(variables.get("batch_stats", {})):
         prefix = _torch_prefix(path[:-1], rules)
         arr = np.asarray(value, dtype=np.float32)
-        sd[f"{prefix}.{_STAT_LEAVES[path[-1]]}"] = torch.from_numpy(arr.copy())
-        sd[f"{prefix}.num_batches_tracked"] = torch.tensor(0, dtype=torch.long)
+        sd[_key(prefix, _STAT_LEAVES[path[-1]])] = torch.from_numpy(arr.copy())
+        sd[_key(prefix, "num_batches_tracked")] = torch.tensor(0, dtype=torch.long)
     for path, value in _flatten(variables.get("frozen", {})):
         prefix = _torch_prefix(path[:-1], rules)
         arr = np.asarray(value, dtype=np.float32)
-        sd[f"{prefix}.{_FROZEN_LEAVES[path[-1]]}"] = torch.from_numpy(arr.copy())
+        sd[_key(prefix, _FROZEN_LEAVES[path[-1]])] = torch.from_numpy(arr.copy())
     return sd
 
 
@@ -346,8 +497,9 @@ def _flax_from_state_dict(sd: Mapping, template: Mapping, rules,
     out: Dict[str, Any] = {}
     for collection, leaves in (("params", _PARAM_LEAVES), ("batch_stats", _STAT_LEAVES),
                                ("frozen", _FROZEN_LEAVES)):
-        paths = [p for p, _ in _flatten(template.get(collection, {}))]
-        keys = {p: f"{_torch_prefix(p[:-1], rules)}.{leaves[p[-1]]}" for p in paths}
+        leaf_shapes = {p: np.shape(v) for p, v in _flatten(template.get(collection, {}))}
+        paths = list(leaf_shapes)
+        keys = {p: _key(_torch_prefix(p[:-1], rules), leaves[p[-1]]) for p in paths}
         present = [p for p in paths if keys[p] in sd]
         if not present:
             continue
@@ -360,7 +512,9 @@ def _flax_from_state_dict(sd: Mapping, template: Mapping, rules,
             if isinstance(value, torch.Tensor):
                 value = value.detach().cpu().numpy()
             arr = np.asarray(value, dtype=np.float32)
-            if path[-1] == "kernel":
+            if path[-1] == "kernel" and len(leaf_shapes[path]) == 2:
+                arr = arr.reshape(arr.shape[:2]).T  # Linear (O, I) or Conv1d (O, I, 1)
+            elif path[-1] == "kernel":
                 prefix = _torch_prefix(path[:-1], rules)
                 if any(re.search(p, prefix) for p in transposed_conv_paths):
                     # (I, O, kh, kw), flipped back -> flipped (kh, kw, I, O)
@@ -370,7 +524,7 @@ def _flax_from_state_dict(sd: Mapping, template: Mapping, rules,
             node = tree
             for name in path[:-1]:
                 node = node.setdefault(name, {})
-            node[path[-1]] = np.ascontiguousarray(arr)
+            node[path[-1]] = np.ascontiguousarray(arr.reshape(leaf_shapes[path]))
         out[collection] = tree
     return out
 
@@ -449,6 +603,22 @@ def pranet_flax_from_state_dicts(tensors: Mapping[str, Mapping],
     ``gald_flax_from_state_dicts`` is for GALD."""
     model = template["model"]
     return {"model": _flax_from_state_dict(tensors["model"], model, _pranet_rules(model))}
+
+
+def research_state_dict_from_flax(name: str, variables: Mapping[str, Any]
+                                  ) -> Dict[str, torch.Tensor]:
+    """JAX variables of one research-zoo module, by its class name (a key of
+    ``RESEARCH_RULES``: models/contextagg.py, zoo.py, seg_nets.py, the GALD
+    blocks of gcpa.py and ``Res2Net`` with its GCNet blocks) -> the port's
+    state dict; Dense kernels become Linear or 1x1 Conv1d weights."""
+    return _state_dict_from_flax(variables, RESEARCH_RULES[name], shapes=_RESEARCH_SHAPES)
+
+
+def research_flax_from_state_dict(name: str, sd: Mapping[str, Any],
+                                  template: Mapping[str, Any]) -> Dict[str, Any]:
+    """The inverse of ``research_state_dict_from_flax``; ``template`` is the
+    JAX module's variables tree, read for its paths and leaf shapes only."""
+    return _flax_from_state_dict(sd, template, RESEARCH_RULES[name])
 
 
 def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -47,8 +47,10 @@ read DIST.INITIALIZE (data parallelism over processes started by
 another value raises ValueError), the trainers SOLVER.ASYNC_CHECKPOINT (the
 background checkpoint writer, ckpt/async_writer.py), and every dataset
 DATA_PIPE.NATIVE_DECODE (the libjpeg/libpng decoder, data/native_decode.py).
+Every trainer reads MODEL.WEIGHTS (a pretrained backbone, a local .pth,
+ckpt/pretrained.py).
 A knob whose counterpart is not ported yet raises NotImplementedError when it
-is set (MODEL.WEIGHTS, DIST.SPATIAL_PARALLEL > 1, DEBUG.CHECKIFY,
+is set (DIST.SPATIAL_PARALLEL > 1, DEBUG.CHECKIFY,
 MODEL.S2D_MAX_CHANNELS > 0, MODEL.SUBPIXEL_DECONV, and an Orbax directory as
 DISTILL.TEACHER).
 The other keys belong to parts of the JAX package not yet ported and are kept

@@ -42,6 +42,7 @@ from .pranet import PraNet
 from .remat import set_remat_blocks
 from .res2net import Res2Net
 from .resnet import _ARCHS, ResNet, output_channels
+from .seg_nets import DilatedSegBackbone
 
 
 def split_model_name(name: str) -> Tuple[str, str]:
@@ -206,7 +207,8 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     logits of order 1 to 5; biases and BN affines are small and nonzero,
     running statistics random, and every criss-cross ``gamma`` is set to
     ``gamma``: at its init value 0 the attention would contribute nothing.
-    The norms of a ResNet or Res2Net take weights in [0.25, 0.75]: with running
+    The norms of a ResNet, a Res2Net or a deep-stem research net
+    (models/seg_nets.py, its head included) take weights in [0.25, 0.75]: with running
     statistics (FrozenBN always, BatchNorm in eval mode) nothing normalises
     the sum of a residual block, and at [0.5, 1.5] each block about doubles
     the second moment of its input, so that ResNet101's 33 blocks take the
@@ -220,7 +222,8 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     def uniform(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
-    damped = {id(n) for m in module.modules() if isinstance(m, (ResNet, Res2Net))
+    damped = {id(n) for m in module.modules()
+              if isinstance(m, (ResNet, Res2Net, DilatedSegBackbone))
               for n in m.modules()}
     for m in module.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):

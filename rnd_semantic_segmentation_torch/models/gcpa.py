@@ -10,6 +10,13 @@ reference's ``state_dict`` keys (``conva.0.weight``, ``long_relation.gamma``,
   * LocalAttenModule — two depthwise 3x3 stride-2 VALID conv+BN+ReLU, an
     align_corners=True upsample and a sigmoid mask: x + x*mask;
   * FAM — the three-input interweaved aggregation;
+  * SpatialCGNL — grouped dot-product global attention (CGNL, linear
+    kernel): per (image, group) one scalar <p, g> over all its channels and
+    pixels scales t, then a grouped 1x1 conv ``z``, GroupNorm ``gn`` and the
+    residual; GALDBlock — a depthwise 3x3 stride-2 VALID conv+BN+ReLU
+    (``down``), SpatialCGNL (``long_relation``), an align_corners=True
+    upsample and LocalAttenModule (``local_attention``), the keys of the
+    reference's contextagg/GALDNet.py;
   * GCPAEncoder / GCPADecoder — HarDNet68 taps; conva, one criss-cross
     module applied twice with shared weights, three local-attention branches,
     the FAM cascade and four per-scale heads upsampled (align_corners=False)
@@ -26,7 +33,7 @@ from torch import nn
 from ..ops import resize_bilinear
 from ..ops.ccattn import cc_attention_core
 from .hardnet import HarDNet
-from .layers import BatchNorm, Conv2d, relu
+from .layers import BatchNorm, Conv2d, GroupNorm, relu
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -66,6 +73,42 @@ class LocalAttenModule(nn.Module):
         y = resize_bilinear(y.float(), x.shape[-2:], align_corners=True)
         mask = torch.sigmoid(y).to(res.dtype)
         return res + res * mask
+
+
+class SpatialCGNL(nn.Module):
+    def __init__(self, inplanes: int, planes: int, use_scale: bool = False,
+                 groups: int = 8):
+        super().__init__()
+        self.planes, self.use_scale, self.groups = planes, use_scale, groups
+        self.t = Conv2d(inplanes, planes, 1, bias=False)
+        self.p = Conv2d(inplanes, planes, 1, bias=False)
+        self.g = Conv2d(inplanes, planes, 1, bias=False)
+        self.z = Conv2d(planes, inplanes, 1, groups=groups, bias=False)
+        self.gn = GroupNorm(groups, inplanes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, h, w = x.shape
+        gch = self.planes // self.groups
+        tg, pg, gg = (conv(x).float().view(b, self.groups, gch, h, w)
+                      for conv in (self.t, self.p, self.g))
+        att = (pg * gg).sum(dim=(2, 3, 4), keepdim=True)  # [B,G,1,1,1]
+        if self.use_scale:
+            att = att / float(gch * h * w) ** 0.5
+        out = (att * tg).view(b, self.planes, h, w).to(x.dtype)
+        return self.gn(self.z(out)) + x
+
+
+class GALDBlock(nn.Module):
+    def __init__(self, inplane: int, plane: int):
+        super().__init__()
+        self.down = _dconv(inplane)
+        self.long_relation = SpatialCGNL(inplane, plane)
+        self.local_attention = LocalAttenModule(inplane)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.long_relation(self.down(x))
+        y = resize_bilinear(y.float(), x.shape[-2:], align_corners=True).to(x.dtype)
+        return self.local_attention(y)
 
 
 class FAM(nn.Module):

@@ -7,6 +7,9 @@ by default with eps 1e-5 and momentum 0.1 (the EfficientNet encoder asks for
 1e-3 and 0.01), which in eval mode applies its running statistics.
 ``FrozenBatchNorm2d`` is the reference's buffers-only norm of the DeepLab
 backbones, and ``make_norm`` picks one of the two by ``MODEL.FREEZE_BN``.
+``Conv1d`` and ``Linear`` cast their parameters as ``Conv2d`` does.
+``GroupNorm`` (the CGNL heads) and ``LayerNormCHW`` (the GCNet channel
+transform, ``nn.LayerNorm([C, 1, 1])``) normalise in float32.
 ``relu``, ``relu6``, ``leaky_relu`` and ``swish`` are the plain functions.
 
 The precision rule is the JAX package's: a layer computes in the type of its
@@ -55,6 +58,21 @@ class Conv2d(nn.Conv2d):
         return self._conv_forward(x, cast_param(self.weight, x), cast_param(self.bias, x))
 
 
+class Conv1d(nn.Conv1d):
+    """``nn.Conv1d`` computing in its input's type (the graph convolutions'
+    1x1 transforms over [B, C, N] tokens)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(x, cast_param(self.weight, x), cast_param(self.bias, x))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in its input's type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, cast_param(self.weight, x), cast_param(self.bias, x))
+
+
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` computing in its input's type, its parameters
     cast; the output size is the layer's own (no ``output_size``)."""
@@ -91,6 +109,28 @@ class FrozenBatchNorm2d(nn.Module):
         scale = self.weight * torch.rsqrt(self.running_var)
         shift = self.bias - self.running_mean * scale
         return x * cast_param(scale, x).view(1, -1, 1, 1) + cast_param(shift, x).view(1, -1, 1, 1)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` (eps 1e-5), computed in float32 and returned in its
+    input's type, as the JAX package's ``GroupNorm``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias,
+                            self.eps).to(x.dtype)
+
+
+class LayerNormCHW(nn.LayerNorm):
+    """``nn.LayerNorm([C, 1, 1])`` on a [B, C, 1, 1] context tensor: the mean
+    and variance over the channels, the affine of shape (C, 1, 1), in float32,
+    returned in the input's type."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__([channels, 1, 1], eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(x.dtype)
 
 
 def make_norm(kind: str):

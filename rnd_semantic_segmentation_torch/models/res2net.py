@@ -79,15 +79,13 @@ class Res2Net(nn.Module):
     taps ``layer1``..``layer4`` (256, 512, 1024 and 2048 channels at strides
     4, 8, 16 and 32) as ``{name: tensor}``.
 
-    ``gc_blocks=True`` (the Res2Net_GC variant: a GCNet context block before
-    layers 2-4) needs ``models/contextagg.py``, which is not ported yet."""
+    ``gc_blocks=True`` is the Res2Net_GC variant: a GCNet ``ContextBlock2d``
+    (models/contextagg.py) on the input of layers 2-4, ``layer2_gcb`` to
+    ``layer4_gcb``, named after the JAX package's scopes."""
 
     def __init__(self, layers: Tuple[int, int, int, int] = (3, 4, 6, 3),
                  base_width: int = 26, scale: int = 4, gc_blocks: bool = False):
         super().__init__()
-        if gc_blocks:
-            raise NotImplementedError("Res2Net(gc_blocks=True) needs the GCNet context "
-                                      "block of models/contextagg.py, not ported yet")
         self.conv1 = nn.Sequential(
             Conv2d(3, 32, 3, 2, padding=1, bias=False), BatchNorm(32), nn.ReLU(),
             Conv2d(32, 32, 3, 1, padding=1, bias=False), BatchNorm(32), nn.ReLU(),
@@ -96,6 +94,10 @@ class Res2Net(nn.Module):
         inplanes = 64
         for idx, (planes, blocks) in enumerate(zip((64, 128, 256, 512), layers)):
             stride = 1 if idx == 0 else 2
+            if gc_blocks and idx > 0:
+                from .contextagg import ContextBlock2d  # contextagg builds on Res2Net
+
+                self.add_module(f"layer{idx + 1}_gcb", ContextBlock2d(inplanes, inplanes))
             layer = []
             for b in range(blocks):
                 layer.append(Bottle2neck(
@@ -110,6 +112,8 @@ class Res2Net(nn.Module):
         x = max_pool(relu(self.bn1(self.conv1(x))), 3, 2, padding=1)
         taps = {}
         for name in ("layer1", "layer2", "layer3", "layer4"):
+            if hasattr(self, f"{name}_gcb"):
+                x = getattr(self, f"{name}_gcb")(x)
             x = getattr(self, name)(x)
             taps[name] = x
         return taps

@@ -46,7 +46,13 @@ BatchNorms into ``CrossRankBatchNorm2d`` and loads its slice of each global
 batch (``DataLoader.global_batch_slice``); the steps average the gradients.
 The primary process alone writes ``config.yaml``, the checkpoints, the
 charts and the logs, and each epoch's save ends in a barrier; every rank
-reads ``resume``.  MODEL.WEIGHTS and DIST.SPATIAL_PARALLEL > 1 raise.
+reads ``resume``.  DIST.SPATIAL_PARALLEL > 1 raises.
+
+MODEL.WEIGHTS lays a pretrained backbone ``.pth`` over the freshly built
+parts (ckpt/pretrained.py), before they reach the device, are broadcast from
+rank 0 (every rank reads the file) and get their optimizers, and so before
+``resume``, which wins where both are given.  The online-distillation
+student is a ``Trainer`` and loads it too.
 """
 
 from __future__ import annotations
@@ -65,6 +71,7 @@ from ..ckpt.checkpoint_io import (
     prune_checkpoints,
     save_checkpoint,
 )
+from ..ckpt.pretrained import load_pretrained_backbone
 from ..data.device_pipe import make_device_augmenter
 from ..data.loader import DataLoader, device_prefetch
 from ..models.build import build_adversarial_discriminator, build_segmentor
@@ -110,12 +117,8 @@ def resize_batch_to(batch, size: int):
 
 def _refuse_unported(cfg) -> None:
     """Knobs of the JAX trainer whose counterparts are not ported yet raise
-    (MODEL.WEIGHTS here, DIST.SPATIAL_PARALLEL > 1 in ``check_world``, with
-    DIST.NUM_DEVICES against the world); none is silently ignored."""
-    if cfg.MODEL.WEIGHTS:
-        raise NotImplementedError(
-            "not ported yet: MODEL.WEIGHTS (pretrained backbone import); the port's "
-            "trainer starts from seeded weights")
+    (DIST.SPATIAL_PARALLEL > 1 in ``check_world``, with DIST.NUM_DEVICES
+    against the world); none is silently ignored."""
     check_world(cfg)
 
 
@@ -151,6 +154,9 @@ class Trainer:
             torch.autograd.set_detect_anomaly(True)
         torch.manual_seed(cfg.SEED)
         self.spec = build_segmentor(cfg)
+        if cfg.MODEL.WEIGHTS:
+            self.logger.info(f"Loading pretrained backbone from {cfg.MODEL.WEIGHTS}")
+            load_pretrained_backbone(self.spec, cfg, self.spec.modules)
         self.segmentor = Segmentor(self.spec, cfg.MODEL.NUM_CLASSES).to(self.device)
         for module in self.spec.modules.values():
             self._replicate(module)

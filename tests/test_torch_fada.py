@@ -589,9 +589,28 @@ def test_tester_evaluates_the_fada_checkpoint(fada_run):
     (("MODEL.S2D_MAX_CHANNELS", "16"), "S2D_MAX_CHANNELS"),
 ], ids=lambda o: o[0] if isinstance(o, tuple) else "")
 def test_fada_trainer_refuses_the_knobs_that_wait(tmp_path, opts, match):
+    if opts[0] == "MODEL.WEIGHTS":
+        # no longer waits: a seeded torchvision-layout ResNet18 is the backbone's start
+        _fada_knob_loads_a_seeded_resnet18(tmp_path, opts[1])
+        return
     cfg = load_cfg(train_adv.build_parser().parse_args(_cli_opts(tmp_path, *opts)))
     with pytest.raises(NotImplementedError, match=match):
         train_adv.make_trainer("deeplab_fada", cfg)
+
+
+def _fada_knob_loads_a_seeded_resnet18(tmp_path, name):
+    from rnd_semantic_segmentation_torch.models.aspp import ResNetFeatureExtractor
+
+    features = randomize_weights_(ResNetFeatureExtractor("resnet18", freeze_bn=True), 4)
+    published = {k[len("backbone."):]: v for k, v in features.state_dict().items()}
+    torch.save({**published, "fc.weight": torch.zeros(1000, 512), "fc.bias": torch.zeros(1000)},
+               tmp_path / name)
+    trainer = train_adv.make_trainer("deeplab_fada", load_cfg(train_adv.build_parser().parse_args(
+        _cli_opts(tmp_path, "MODEL.WEIGHTS", str(tmp_path / name)))))
+    loaded = trainer.segmentor.parts["feature_extractor"].state_dict()
+    for key, value in published.items():
+        assert torch.equal(loaded["backbone." + key], value), key
+    assert trainer.state.step == 0 and DISC_PART in trainer.state.optimizers
 
 
 def test_fada_trainer_builds_under_async_checkpoints(tmp_path):

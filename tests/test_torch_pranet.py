@@ -208,8 +208,14 @@ def test_res2net50_taps_match():
 
 
 def test_gc_blocks_raise():
-    with pytest.raises(NotImplementedError, match="contextagg"):
-        Res2Net(gc_blocks=True)
+    """``gc_blocks`` no longer raises: the GCNet blocks of
+    models/contextagg.py sit before layers 2-4 (held against the JAX
+    Res2Net_GC in tests/test_torch_contextagg.py)."""
+    net = Res2Net(gc_blocks=True)
+    assert [n for n, _ in net.named_children() if n.endswith("_gcb")] == [
+        "layer2_gcb", "layer3_gcb", "layer4_gcb"]
+    assert net.layer2_gcb.conv_mask.in_channels == 256
+    assert net.layer4_gcb.channel_add_conv[0].out_channels == 1024 // 8
 
 
 # -- PraNet ---------------------------------------------------------------------------

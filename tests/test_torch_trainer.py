@@ -158,9 +158,29 @@ def test_prune_checkpoints(tmp_path):
     ("MODEL.SUBPIXEL_DECONV", "True"),
 ], ids=lambda o: o[0])
 def test_every_knob_that_waits_raises(tmp_path, opts):
+    if opts[0] == "MODEL.WEIGHTS":
+        # no longer waits: a seeded hardnet68-layout file is the encoder's start
+        _knob_loads_a_seeded_hardnet68(tmp_path, opts[1])
+        return
     with pytest.raises(NotImplementedError):
         train_src.make_trainer("gald", _cfg(tmp_path, *opts))
     assert not list(tmp_path.glob("*.pth"))
+
+
+def _knob_loads_a_seeded_hardnet68(tmp_path, name):
+    from rnd_semantic_segmentation_torch.models.build import randomize_weights_
+    from rnd_semantic_segmentation_torch.models.gcpa import GCPAEncoder
+
+    encoder = randomize_weights_(GCPAEncoder(), 3)
+    published = {k[len("hardnet."):]: v for k, v in encoder.state_dict().items()
+                 if "num_batches_tracked" not in k}
+    torch.save({**published, "base.19.3.weight": torch.zeros(1000, 1024)}, tmp_path / name)
+    trainer = train_src.make_trainer("gald", _cfg(tmp_path, "MODEL.WEIGHTS",
+                                                  str(tmp_path / name)))
+    loaded = trainer.segmentor.parts["encoder"].state_dict()
+    for key, value in published.items():
+        assert torch.equal(loaded["hardnet." + key], value), key
+    assert trainer.start_epoch == 1 and trainer.state.step == 0
 
 
 @pytest.mark.parametrize("opts", [
