@@ -298,6 +298,31 @@ no result line on any failure.  Phases, each of which raises:
               under the DeepLab source trainer (2 steps) and a hardnet68 one
               under GALD FADA (one step): the backbone equals the file after
               the load, the classifier keys skipped, the load's seconds.
+ 46. zoo_nets the rest of the research zoo at published sizes, float32,
+              seeded weights: UNet (16 at 352), CE-Net ResNet34 (8 at 448),
+              BiSeNetV1 (8 at 1024, 19 classes), DeepLabV3 ResNet-101 (8 at
+              513, output stride 16), B2ResNet (10 at 352), RepVGG-A0,
+              CGNLResNet-50 (cgnl) and SE-ResNet (32 at 224), ResNet3D
+              (8 x 3 x 16 x 112 x 112) and the four FAM variants (interplanes
+              256 on the taps of a 1024x512 frame, 8 a batch): a warm-up and a
+              timed SGD step with each reference's loss (``_zoo_loss``), an
+              eval forward, peak memory; RepVGG-A0's deploy form
+              (``repvgg_reparam``) against its train form on the card;
+ 47. rewrites the exact conv rewrites, each pair from the same seeded weights
+              on one batch, knob off then on: GALD's source step of 6 at
+              1280x720 under MODEL.S2D_MAX_CHANNELS 64 (#1 and #2 twice a
+              step), PraNet Res2Net50's of 16 at 352 under 256, attn B2's
+              eval forward at 512 under MODEL.SUBPIXEL_DECONV with
+              MODEL.FUSED_MBCONV (#3 17 times a forward): the convs rewritten,
+              ms off and on; the eval outputs, the first losses and the maps
+              within 2e-4 (largest relative gap), the first step's train-mode
+              outputs within 2e-4 or 3 times what an image scaled by
+              1 + 2^-20 does, the first backwards' gradient gaps logged;
+ 48. checkify DEBUG.CHECKIFY on DeepLab-R101's source step of 6 at 1280x720:
+              ms without and with the float checks, the first forward's
+              outputs bit-equal, the parameters after one step within twice
+              the unchecked repeat's gap; then a batch with a pixel at +inf
+              must raise ``FloatingPointError`` naming the op.
 Every phase before train_bf16 pins MODEL.DTYPE float32 (``FLOAT32``).
 The online phases cut the datasets to their steps (``_FirstItems``); each
 earlier phase keeps its depth.
@@ -307,13 +332,14 @@ run's length: the configs leave them at their defaults, to which the
 readers resize each item after the pra transform (ROADMAP Queue 3).
 Hand kernels lie on the GALD paths (#1 and #2: serving, training, FADA and
 online distillation, in float32 and in bfloat16, each rank of a world of two,
-the GALD TPU recipe and the GALD FADA run from a pretrained file; #1 also in
-int8 serving and the GALD export), on CCNet's (#1 and #2) and on the attn eval paths (#3: eval, serving, the bli_val
-evals, the online attn teacher, the last also in bfloat16, int8 eval and the
-attn export); no hand kernel lies on the
-DeepLab, VGG16 or PraNet paths, nor on attn training (source, FADA or the
-online student) nor on the device augmentation: their phases check that
-none of the three launched.
+the GALD TPU recipe, the GALD FADA run from a pretrained file and GALD under
+space-to-depth; #1 also in int8 serving and the GALD export), on CCNet's (#1
+and #2) and on the attn eval paths (#3: eval, serving, the bli_val evals, the
+online attn teacher, the last also in bfloat16, int8 eval, the attn export
+and the sub-pixel forward); no hand kernel lies on the DeepLab, VGG16 or
+PraNet paths, nor on attn training (source, FADA or the online student), the
+device augmentation or the zoo's other nets: their phases check that none
+of the three launched.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  ``--phases a,b`` runs only the named
@@ -325,7 +351,8 @@ train_pranet, eval_pranet, serve_pranet, train_fada_pranet, train_distill_online
 train_distill_online_gald, train_distill_online_polyp, device_aug, train_bf16,
 train_fada_bf16, distill_online_bf16, remat, quant_deeplab, quant_gald,
 quant_attn, export, inference_cli, dist_deeplab, dist_gald_2rank, dist_eval, async_ckpt,
-native_decode, recipes_tpu, ccnet, pretrained; device and build always run) and prints no result lines: an aid while
+native_decode, recipes_tpu, ccnet, pretrained, zoo_nets, rewrites, checkify; device and
+build always run) and prints no result lines: an aid while
 working on one path.  A phase before data_files that evaluates or serves a
 checkpoint makes a seeded one when the phase that trains it did not run; a
 phase after it that reads another's output (files, a checkpoint,
@@ -2164,16 +2191,8 @@ def phase_train_fada_deeplab(tmp: str, card: str) -> int:
         f"({flops['discriminator'] / split['discriminator'] / 1e9:.1f} TFLOP/s); operations "
         f"bound of a step {sum(flops.values()) / peak * 1e3:.1f} ms at {peak / 1e12:.0f} "
         f"TFLOP/s float32")
-    # the same split with cuDNN choosing its algorithms by trial (the port
-    # leaves cudnn.benchmark off): what that choice costs on this path
-    torch.backends.cudnn.benchmark = True
-    try:
-        tried, _, tried_peaks = _fada_split(trainer, profile=False)
-    finally:
-        torch.backends.cudnn.benchmark = False
-    log(f"[train_fada_deeplab] the same split with torch.backends.cudnn.benchmark on "
-        f"({sum(tried.values()):.1f} ms in all): " + ", ".join(
-            f"{key} {ms:.1f} ms (peak {tried_peaks[key]:.0f} MiB)" for key, ms in tried.items()))
+    # the same split with torch.backends.cudnn.benchmark on (PERF.md) is
+    # left out, for the script's time
     return launches
 
 
@@ -5124,6 +5143,484 @@ def phase_pretrained(tmp: str, card: str) -> dict:
     return out
 
 
+# -- the rest of the research zoo, the exact conv rewrites, DEBUG.CHECKIFY ------------
+
+# The zoo's nets at their published sizes (batch, channels, side or T x side),
+# float32 with TF32 off; a warm-up step and a timed one with SGD, then an eval
+# forward.  The loss is each net's reference's: BCE on the sigmoid
+# probabilities of the binary nets (UNet, CE-Net) and on the channel-mean
+# saliency logits of B2ResNet's branches (CPD), CE on the class maps of the
+# segmentation nets and on the classifier's logits of CGNLResNet; the
+# encoders without a head of their own (RepVGG, SE-ResNet, ResNet3D, trained
+# on ImageNet or Kinetics classification) take CE on their last tap's
+# global average, one class a channel; a FAM variant CE on its output, one
+# class a channel.
+ZOO_LR, ZOO_MOMENTUM = 1e-3, 0.9
+ZOO_FAM_BATCH = 8                        # GALD's serving batch
+# the taps of a 1024x512 frame that GALD's fam45 fuses: left the /16 HarDNet
+# tap (640 channels), down and right the /32 decoder maps (256)
+ZOO_FAM_TAPS = ((640, 32, 64), (256, 16, 32), (256, 16, 32))
+REPVGG_DEPLOY_TOLERANCE = 1e-4           # of the train form's largest output
+REWRITE_TOLERANCE = 2e-4                 # the JAX package's whole-model tolerance
+REWRITE_NOISE_FACTOR = 3                 # as dist_gald_2rank holds to an image scaling
+REWRITE_GALD_S2D, REWRITE_PRANET_S2D = "64", "256"
+# #1 and #2 in the GALD pair: 3 steps x 2 trainers x 2 a step, and #1 twice
+# in each of its 3 forwards without autograd (two eval, one scaled image)
+REWRITE_GALD_LAUNCHES = (3 * 2 * 2 + 3 * 2, 3 * 2 * 2)
+
+
+def _zoo_specs():
+    """(tag, constructor, input shapes, loss) of every zoo net of the phase."""
+    from rnd_semantic_segmentation_torch.models import (cls_hubs, encoders_zoo, fam_variants,
+                                                        nets_zoo, resnet3d)
+
+    fam_in = tuple(c for c, _, _ in ZOO_FAM_TAPS)
+    fam_shapes = [(ZOO_FAM_BATCH, c, h, w) for c, h, w in ZOO_FAM_TAPS]
+    crop = (ZOO_FAM_BATCH, 1) + ZOO_FAM_TAPS[0][1:]
+    return [
+        ("unet", lambda: nets_zoo.UNet(1), [(16, 3, 352, 352)], "bce_probs"),
+        ("cenet_r34", lambda: nets_zoo.CENet(1), [(8, 3, 448, 448)], "bce_probs"),
+        ("bisenetv1", lambda: nets_zoo.BiSeNetV1(19), [(8, 3, 1024, 1024)], "ce_maps"),
+        ("deeplabv3_r101", lambda: encoders_zoo.DeepLabV3(19, "resnet101"),
+         [(8, 3, 513, 513)], "ce_maps"),
+        ("b2resnet", encoders_zoo.B2ResNet, [(10, 3, 352, 352)], "bce_saliency"),
+        ("repvgg_a0", lambda: encoders_zoo.RepVGG("RepVGG-A0"), [(32, 3, 224, 224)],
+         "ce_pooled"),
+        ("cgnlresnet50", lambda: cls_hubs.CGNLResNet("resnet50", nl_type="cgnl", nl_nums=1),
+         [(32, 3, 224, 224)], "ce_logits"),
+        ("seresnet", encoders_zoo.SEResNet, [(32, 3, 224, 224)], "ce_pooled"),
+        ("resnet3d", resnet3d.ResNet3D, [(8, 3, 16, 112, 112)], "ce_pooled"),
+        ("famag", lambda: fam_variants.FAMAG(*fam_in), fam_shapes, "ce_maps"),
+        ("famagv3", lambda: fam_variants.FAMAGv3(*fam_in), fam_shapes, "ce_maps"),
+        ("fampra", lambda: fam_variants.FAMPra(*fam_in), fam_shapes + [crop], "ce_maps"),
+        ("famscws", lambda: fam_variants.FAMSCWS(*fam_in), fam_shapes, "ce_maps"),
+    ]
+
+
+def _zoo_loss(kind: str, out, gen: torch.Generator, targets: dict) -> torch.Tensor:
+    """The loss ``kind`` of ``out``; its targets are drawn from ``gen`` at the
+    first call and kept in ``targets``, so that every step sees the same."""
+    import torch.nn.functional as F
+
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    if kind == "ce_pooled":      # an encoder: its last tap
+        outs = outs[-1:]
+    elif kind == "ce_maps":      # FAMPra's one-channel reverse-attention map has no classes
+        outs = [o for o in outs if o.shape[1] > 1]
+    total = 0.0
+    for i, o in enumerate(outs):
+        if kind in ("bce_probs", "bce_saliency"):
+            logits = o.mean(1, keepdim=True) if kind == "bce_saliency" else o
+            key = (i, tuple(logits.shape))
+            if key not in targets:
+                targets[key] = (torch.rand(logits.shape, generator=gen, device=o.device)
+                                > 0.5).float()
+            total = total + (F.binary_cross_entropy(logits.clamp(1e-6, 1 - 1e-6), targets[key])
+                             if kind == "bce_probs" else
+                             F.binary_cross_entropy_with_logits(logits, targets[key]))
+        else:
+            logits = o.flatten(2).mean(2) if kind == "ce_pooled" else o
+            key = (i, tuple(logits.shape))
+            if key not in targets:
+                shape = (logits.shape[0],) + tuple(logits.shape[2:])
+                targets[key] = torch.randint(0, logits.shape[1], shape, generator=gen,
+                                             device=o.device)
+            total = total + F.cross_entropy(logits.float(), targets[key])
+    return total
+
+
+def _zoo_net(tag: str, make, shapes, kind: str, card: str) -> dict:
+    """One net: seeded weights, a warm-up step and a timed one, then an eval
+    forward (warm-up, timed); ms, peak MiB, finite outputs."""
+    torch.manual_seed(0)
+    net = randomize_weights_(make(), seed=0).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    inputs = [torch.randn(s, generator=gen, device="cuda") for s in shapes]
+    opt = torch.optim.SGD(net.parameters(), lr=ZOO_LR, momentum=ZOO_MOMENTUM)
+    targets: dict = {}
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = _zoo_loss(kind, net.train()(*inputs), gen, targets)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    first = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss = step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    with torch.no_grad():
+        net.eval()(*inputs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = net(*inputs)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    outs = out if isinstance(out, tuple) else (out,)
+    if not (torch.isfinite(first) and torch.isfinite(loss)
+            and all(torch.isfinite(o).all() for o in outs)):
+        raise AssertionError(f"[zoo_nets] {tag}: losses {float(first)}, {float(loss)} or its "
+                             f"eval outputs are not finite")
+    params = sum(p.numel() for p in net.parameters())
+    log(f"[zoo_nets] {tag} on {card}: input {[list(s) for s in shapes]}, {params / 1e6:.2f} M "
+        f"parameters; a train step {step_ms:.1f} ms ({kind}: {float(first):.4f} -> "
+        f"{float(loss):.4f}), peak {peak_mib:.0f} MiB; eval forward {fwd_ms:.1f} ms, outputs "
+        f"{[list(o.shape) for o in outs]}")
+    rec = {"step_ms": step_ms, "fwd_ms": fwd_ms, "peak_mib": peak_mib}
+    if tag == "repvgg_a0":
+        rec["deploy_gap"] = _repvgg_deploy_on_card(net, inputs[0], outs)
+    return rec
+
+
+def _repvgg_deploy_on_card(net, x: torch.Tensor, train_outs) -> float:
+    """The deploy form from ``repvgg_reparam`` of the trained weights: its
+    eval taps against the train form's on the same batch."""
+    from rnd_semantic_segmentation_torch.models.encoders_zoo import RepVGG, repvgg_reparam
+
+    deploy = RepVGG("RepVGG-A0", deploy=True)
+    deploy.load_state_dict(repvgg_reparam(net.state_dict()))
+    with torch.no_grad():
+        outs = deploy.cuda().eval()(x)
+    gap = max(((o - r).abs().max() / r.abs().max()).item() for o, r in zip(outs, train_outs))
+    log(f"[zoo_nets] repvgg_a0 deploy form (one 3x3 conv a block) against the train form: "
+        f"largest gap {gap:.3e} of a tap's largest value (tolerance {REPVGG_DEPLOY_TOLERANCE:g})")
+    if not gap <= REPVGG_DEPLOY_TOLERANCE:
+        raise AssertionError(f"[zoo_nets] RepVGG's deploy form is {gap:.3e} off")
+    return gap
+
+
+def phase_zoo_nets(tmp: str, card: str) -> dict:
+    """Each net of the rest of the research zoo (``_zoo_specs``) trained one
+    step and evaluated at its published size; no hand kernel lies on them."""
+    _zero_kernel_counts()
+    out = {}
+    for tag, make, shapes, kind in _zoo_specs():
+        out[tag] = _zoo_net(tag, make, shapes, kind, card)
+        torch.cuda.empty_cache()
+    _check_no_kernel("zoo_nets")
+    MEASURED["zoo_nets"] = out
+    return out
+
+
+class _RewriteCounts:
+    """Counts the calls of the two rewrites through ``models.layers`` while
+    it is entered: the convs they took."""
+
+    def __enter__(self):
+        from rnd_semantic_segmentation_torch.models import layers
+
+        self.layers, self.calls = layers, {"conv2d_s2d": 0, "conv_transpose_subpixel": 0}
+        self.real = {n: getattr(layers, n) for n in self.calls}
+        for name, fn in self.real.items():
+            setattr(layers, name, self._counting(name, fn))
+        return self
+
+    def _counting(self, name, fn):
+        def call(*args, **kwargs):
+            self.calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def __exit__(self, *exc):
+        for name, fn in self.real.items():
+            setattr(self.layers, name, fn)
+
+
+def _in_turns(calls: dict, rounds: int = 2) -> dict:
+    """Host-clock ms of each of ``calls`` (name -> a function that ends in a
+    device sync), run in turns a, b, b, a, ... ``rounds`` times each; the
+    median a call."""
+    times = {name: [] for name in calls}
+    order = list(calls)
+    for r in range(rounds):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def _float_leaves(out) -> list:
+    """float32 copies of the floating-point tensors in ``out``."""
+    from torch.utils._pytree import tree_leaves
+
+    return [t.detach().float().clone() for t in tree_leaves(out)
+            if isinstance(t, torch.Tensor) and t.is_floating_point()]
+
+
+def _first_outputs(module: torch.nn.Module):
+    """A forward hook on ``module`` that keeps ``_float_leaves`` of its first
+    call's output; returns (the list they go into, the hook's handle)."""
+    kept = []
+
+    def hook(_module, _args, out):
+        if not kept:
+            kept.extend(_float_leaves(out))
+    return kept, module.register_forward_hook(hook)
+
+
+def _segmentor_outputs(segmentor, image: torch.Tensor, train: bool) -> list:
+    """``_float_leaves`` of one forward of ``segmentor`` on the NHWC
+    ``image`` under no_grad, in train or eval mode; the running statistics
+    that a train-mode forward moves are put back."""
+    saved = [b.clone() for b in segmentor.buffers()]
+    x = image.float().permute(0, 3, 1, 2).contiguous()
+    with torch.no_grad():
+        out = _float_leaves(segmentor(x, label_size=tuple(image.shape[1:3]), train=train))
+        for b, v in zip(segmentor.buffers(), saved):
+            b.copy_(v)
+    return out
+
+
+def _largest_gap(have, want) -> float:
+    """The largest element gap of each pair of tensors, relative to the
+    largest magnitude of ``want``'s tensor; the largest over the pairs."""
+    if len(have) != len(want) or not want:
+        raise AssertionError(f"{len(have)} tensors against {len(want)}")
+    return max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+               for a, b in zip(have, want))
+
+
+def _rewrite_train_pair(tag: str, tmp: str, card: str, config: str, family: str, knob,
+                        batch_opts=()) -> dict:
+    """The source step of ``config`` from seeded weights on one batch, with
+    ``knob`` off and on.  Each trainer first runs an eval-mode forward on the
+    batch (running statistics, as the JAX package's whole-model test of the
+    rewrite), then its first step (cuDNN's first calls), whose loss, the
+    outputs of its train-mode forward and the gradients of its backward are
+    kept; then two timed steps each in turns (on, off, off, on).  Held, each
+    by its largest relative element gap (``_largest_gap``): the eval
+    outputs and the first losses to REWRITE_TOLERANCE, and the train-mode
+    outputs to the larger of REWRITE_TOLERANCE and REWRITE_NOISE_FACTOR
+    times what an image scaled by 1 + 2^-20 does to the knob-off train-mode
+    forward (batch statistics amplify any change of rounding: GALD's
+    reached 4.6e-4 on the H100).  The gradients' whole-model gap (the
+    norm of the difference over the norm) and their largest leaf gap are
+    logged, not held: in train mode from seeded weights they move with any
+    change of rounding (GALD at 224 on the CPU: 3.7e-2 and 2.4), as the
+    train phase's ReLU flips show; the CPU tests hold each rewritten conv's
+    gradients to the plain conv's at 1e-4."""
+    trainers, first, rewritten, evals, outs, grads, batch = {}, {}, {}, {}, {}, {}, None
+    for on in (False, True):
+        trainer = _synthetic_trainer(f"{tag}_{'on' if on else 'off'}", tmp, config, family, 3,
+                                     *FLOAT32, *batch_opts, *(knob if on else ()))
+        if batch is None:
+            batch = _device_batch(trainer.train_loader, trainer.device)
+        trainer.train_loader.close()
+        evals[on] = _segmentor_outputs(trainer.segmentor, batch["image"], train=False)
+        if not on:
+            scaled = _segmentor_outputs(trainer.segmentor, batch["image"] * (1 + 2.0 ** -20),
+                                        train=True)
+        outs[on], handle = _first_outputs(trainer.segmentor)
+        with _RewriteCounts() as counts:
+            first[on] = trainer.step_fn(batch, 0)["loss"]
+        handle.remove()
+        # the step leaves its gradients in place until the next one starts
+        grads[on] = [p.grad.detach().clone() for p in trainer.segmentor.parameters()
+                     if p.grad is not None]
+        rewritten[on] = dict(counts.calls)
+        trainers[on] = trainer
+    ms = _in_turns({on: (lambda t=trainers[on]: t.step_fn(batch, 0)) for on in (True, False)})
+    del trainers
+    gap = abs(first[True] - first[False]) / abs(first[False])
+    eval_gap = _largest_gap(evals[True], evals[False])
+    out_gap = _largest_gap(outs[True], outs[False])
+    noise = _largest_gap(scaled, outs[False])
+    out_tolerance = max(REWRITE_TOLERANCE, REWRITE_NOISE_FACTOR * noise)
+    leaf_gap = _largest_gap(grads[True], grads[False])
+    grad_gap = (torch.stack([(a - b).double().norm() for a, b in zip(grads[True], grads[False])])
+                .norm() / torch.stack([b.double().norm() for b in grads[False]]).norm()).item()
+    shapes = [tuple(o.shape) for o in outs[False]]
+    del evals, outs, grads, scaled
+    torch.cuda.empty_cache()
+    convs = rewritten[True]["conv2d_s2d"] + rewritten[True]["conv_transpose_subpixel"]
+    log(f"[rewrites] {tag} on {card}: {' '.join(knob)} rewrote {convs} convs a forward "
+        f"({rewritten[True]}); a step of {tuple(batch['image'].shape)} {ms[False]:.1f} ms off, "
+        f"{ms[True]:.1f} ms on (x{ms[True] / ms[False]:.2f}; medians of 2 in turns after each "
+        f"trainer's first); largest relative gaps, knob on against off, of the outputs "
+        f"{shapes}: eval mode {eval_gap:.3e} (tolerance {REWRITE_TOLERANCE:g}), the first "
+        f"step's train-mode forward {out_gap:.3e} (tolerance {out_tolerance:.3e}; an image "
+        f"scaled by 1 + 2^-20 moves it {noise:.3e}); first losses {first[False]:.6f} off, "
+        f"{first[True]:.6f} on, relative gap {gap:.3e}; the first backward's gradients "
+        f"whole-model gap {grad_gap:.3e}, largest leaf gap {leaf_gap:.3e} (not held)")
+    if (not convs or any(rewritten[False].values()) or not gap <= REWRITE_TOLERANCE
+            or not eval_gap <= REWRITE_TOLERANCE or not out_gap <= out_tolerance):
+        raise AssertionError(f"[rewrites] {tag}: losses {first}, eval outputs {eval_gap}, "
+                             f"train outputs {out_gap} (noise {noise}), convs {rewritten}")
+    return {"off_ms": ms[False], "on_ms": ms[True], "gap": gap, "eval_gap": eval_gap,
+            "train_out_gap": out_gap, "train_out_noise": noise, "grad_gap": grad_gap,
+            "leaf_gap": leaf_gap, "convs": convs}
+
+
+def _rewrite_attn_pair(card: str) -> dict:
+    """attn B2 with MODEL.FUSED_MBCONV at 512, a batch of ATTN_BATCH, the eval
+    forward with MODEL.SUBPIXEL_DECONV off and on from the same seeded
+    weights: its five maps' largest relative gap, then three timed forwards
+    each in turns."""
+    x = torch.rand(ATTN_BATCH, 3, ATTN_SIZE, ATTN_SIZE,
+                   generator=torch.Generator().manual_seed(3)).cuda()
+    segs, outs, rewritten, launches = {}, {}, {}, {}
+    for on in (False, True):
+        cfg = load_cfg(test_cli.build_parser().parse_args(_attn_opts(
+            "", "", "MODEL.FUSED_MBCONV", "True",
+            *(("MODEL.SUBPIXEL_DECONV", "True") if on else ()))))
+        _check_attn_geometry(cfg)
+        seg = Segmentor(build_segmentor(cfg), cfg.MODEL.NUM_CLASSES)
+        randomize_weights_(seg, seed=0)
+        segs[on] = seg.cuda().eval()
+        with torch.no_grad(), _RewriteCounts() as counts:
+            before = mbconv.KERNEL_LAUNCHES
+            outs[on] = [o.float() for o in segs[on](x)[0]]
+            launches[on] = mbconv.KERNEL_LAUNCHES - before
+        rewritten[on] = dict(counts.calls)
+    with torch.no_grad():
+        ms = _in_turns({on: (lambda s=segs[on]: s(x)) for on in (True, False)}, rounds=3)
+    del segs
+    torch.cuda.empty_cache()
+    gap = _largest_gap(outs[True], outs[False])
+    convs = rewritten[True]["conv_transpose_subpixel"]
+    log(f"[rewrites] attn_b2_subpixel on {card}: MODEL.SUBPIXEL_DECONV rewrote {convs} "
+        f"transposed convs a forward; eval forward of {tuple(x.shape)} with "
+        f"MODEL.FUSED_MBCONV {ms[False]:.1f} ms off, {ms[True]:.1f} ms on "
+        f"(x{ms[True] / ms[False]:.2f}; medians of 3 in turns); fused_mbconv_fwd "
+        f"{launches[False]} and {launches[True]} launches a forward; largest relative gap of "
+        f"the five maps {gap:.3e} (tolerance {REWRITE_TOLERANCE:g})")
+    if (convs != 5 or any(rewritten[False].values()) or not gap <= REWRITE_TOLERANCE
+            or launches[False] != MBCONV_LAUNCHES_PER_FORWARD
+            or launches[True] != MBCONV_LAUNCHES_PER_FORWARD):
+        raise AssertionError(f"[rewrites] attn: {convs} convs, gap {gap}, launches {launches}")
+    return {"off_ms": ms[False], "on_ms": ms[True], "gap": gap, "convs": convs}
+
+
+def phase_rewrites(tmp: str, card: str) -> tuple:
+    """The exact conv rewrites against their knob off: GALD's source step
+    of 6 at 1280x720 under MODEL.S2D_MAX_CHANNELS 64 (#1 and #2 twice a
+    step, #1 twice in each forward without autograd), PraNet Res2Net50's of 16 at 352 under 256, and attn B2's eval
+    forward at 512 under MODEL.SUBPIXEL_DECONV with MODEL.FUSED_MBCONV (#3 17
+    times a forward).  Returns the launches of #1, #2 and #3."""
+    _zero_kernel_counts()
+    out = {"gald_s2d": _rewrite_train_pair(
+        "gald_s2d", tmp, card, "gald_src.yaml", "gald",
+        ("MODEL.S2D_MAX_CHANNELS", REWRITE_GALD_S2D))}
+    fwd, bwd = ccattn.KERNEL_LAUNCHES, ccattn.BWD_KERNEL_LAUNCHES
+    if (fwd, bwd, mbconv.KERNEL_LAUNCHES) != REWRITE_GALD_LAUNCHES + (0,):
+        raise AssertionError(f"[rewrites] GALD launches {fwd}, {bwd}, want "
+                             f"{REWRITE_GALD_LAUNCHES}")
+    side = f"({PRANET_SIDE}, {PRANET_SIDE})"
+    out["pranet_s2d"] = _rewrite_train_pair(
+        "pranet_s2d", tmp, card, "pranet_src_polyp.yaml", "pranet",
+        ("MODEL.S2D_MAX_CHANNELS", REWRITE_PRANET_S2D),
+        batch_opts=("INPUT.SOURCE_INPUT_SIZE_TRAIN", side))
+    out["attn_subpixel"] = _rewrite_attn_pair(card)
+    counts = tuple(getattr(m, n) for m, n in KERNEL_COUNTERS)
+    log(f"[rewrites] launches (cc fwd, cc bwd, mbconv) {counts}")
+    if counts[:2] != REWRITE_GALD_LAUNCHES or counts[2] != 2 * 4 * MBCONV_LAUNCHES_PER_FORWARD:
+        raise AssertionError(f"[rewrites] launches {counts}")
+    MEASURED["rewrites"] = out
+    return counts
+
+
+# DeepLabV2-ResNet101, 6 at 1280x720 (its config), float32
+CHECKIFY_POISON = (0, 100, 200, 1)        # (image, row, column, channel) set to +inf
+
+
+def _checkify_step(tag: str, tmp: str, checked: bool):
+    trainer = _synthetic_trainer(tag, tmp, "deeplabv2_r101_src.yaml", "deeplab", 1,
+                                 *FLOAT32, *(("DEBUG.CHECKIFY", "True") if checked else ()))
+    trainer.train_loader.close()
+    return trainer
+
+
+def phase_checkify(tmp: str, card: str) -> dict:
+    """DEBUG.CHECKIFY on the DeepLab-R101 source step of 6 at 1280x720: from
+    the same seeded weights on the same batch (cuDNN's deterministic
+    algorithms on), the step without the checks, with them, and without
+    again; the parameters after that first step against the first unchecked
+    step's, then two more steps each of the unchecked and the checked
+    trainer in turns, timed.  On the card the unchecked step is not
+    bit-reproducible: CE's NLL and the bilinear resize's backward add with
+    atomics, which PyTorch lists as nondeterministic with no deterministic
+    version (the CPU test holds the checked step bit-equal).  So the checked
+    step's parameters are held to at most twice the unchecked repeat's
+    difference (relative to each tensor's largest value, at least 2^-22).
+    The loss is not held bit-equal either: CE's NLL sums with atomics too
+    (two unchecked steps' first losses 1 ulp apart on the H100).  The
+    segmentor's outputs of the first forward, which the deterministic
+    convolutions and norms make, are held bit-equal to the unchecked
+    step's.
+    Then the checked step on the batch with one pixel at +inf, which the
+    first conv's sums turn into inf - inf, must raise ``FloatingPointError``
+    naming the op (only that exception is caught)."""
+    _zero_kernel_counts()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        trainers, params, batch, losses, outs = {}, {}, None, {}, {}
+        for tag, checked in (("off", False), ("on", True), ("off_again", False)):
+            trainer = _checkify_step(f"checkify_{tag}", tmp, checked)
+            if batch is None:
+                batch = _device_batch(trainer.train_loader, trainer.device)
+            outs[tag], handle = _first_outputs(trainer.segmentor)
+            losses[tag] = trainer.step_fn(batch, 0)["loss"]
+            handle.remove()
+            params[tag] = [p.detach().clone() for p in trainer.segmentor.parameters()]
+            trainers[tag] = trainer
+        equal = {tag: all(torch.equal(a, b) for a, b in zip(params[tag], params["off"]))
+                 for tag in ("on", "off_again")}
+        forward_equal = {tag: len(outs[tag]) == len(outs["off"]) > 0 and all(
+            torch.equal(a, b) for a, b in zip(outs[tag], outs["off"]))
+            for tag in ("on", "off_again")}
+        del outs
+        gaps = {tag: _largest_gap(params[tag], params["off"]) for tag in ("on", "off_again")}
+        ms = _in_turns({tag: (lambda t=trainers[tag]: t.step_fn(batch, 0))
+                        for tag in ("on", "off")})
+        checked_trainer = trainers["on"]
+        del trainers, params
+        log(f"[checkify] DeepLab-R101 step of {tuple(batch['image'].shape)} on {card}: "
+            f"{ms['off']:.1f} ms without the checks, {ms['on']:.1f} ms with them "
+            f"(x{ms['on'] / ms['off']:.2f}; medians of 2 in turns after the first steps); "
+            f"first losses {losses}; the first forward's outputs bit-equal to the unchecked "
+            f"step's: with the checks {forward_equal['on']}, the unchecked step again "
+            f"{forward_equal['off_again']}; the parameters after the first step against the "
+            f"unchecked step's: with the checks bit-equal {equal['on']}, largest gap "
+            f"{gaps['on']:.3e} of a tensor's largest value; the unchecked step again bit-equal "
+            f"{equal['off_again']}, {gaps['off_again']:.3e}")
+        if not forward_equal["on"]:
+            raise AssertionError(f"[checkify] the checked step's forward is not bit-equal to "
+                                 f"the unchecked step's: {forward_equal}, losses {losses}")
+        if not gaps["on"] <= max(2 * gaps["off_again"], 2.0 ** -22):
+            raise AssertionError(f"[checkify] the checked step moved the parameters "
+                                 f"otherwise: {gaps}")
+        poisoned = {k: v.clone() for k, v in batch.items()}
+        b, r, c, ch = CHECKIFY_POISON
+        poisoned["image"][b, r, c, ch] = float("inf")
+        try:
+            checked_trainer.step_fn(poisoned, 0)
+        except FloatingPointError as err:
+            log(f"[checkify] the poisoned step raised FloatingPointError: {err}")
+            message = str(err)
+        else:
+            raise AssertionError("[checkify] the step on a batch with an inf pixel raised "
+                                 "nothing")
+        if "aten." not in message:
+            raise AssertionError(f"[checkify] the error names no op: {message}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    _check_no_kernel("checkify")
+    out = {"off_ms": ms["off"], "on_ms": ms["on"], "bit_equal": equal["on"],
+           "forward_bit_equal": forward_equal["on"],
+           "unchecked_repeat_bit_equal": equal["off_again"], "gaps": gaps, "error": message}
+    MEASURED["checkify"] = out
+    return out
+
+
 def _run_phase(name: str, tmp, card: str, *args):
     """Runs ``phase_<name>``, frees the allocator's cache and logs the
     phase's seconds."""
@@ -5201,8 +5698,11 @@ def main(argv=None) -> int:
         recipe_fwd, recipe_bwd, recipe_mbconv = _run_phase("recipes_tpu", tmp, card, native_built)
         ccnet = _run_phase("ccnet", tmp, card)
         pretrained = _run_phase("pretrained", tmp, card)
+        _run_phase("zoo_nets", tmp, card)
+        rewrite_fwd, rewrite_bwd, rewrite_mbconv = _run_phase("rewrites", tmp, card)
+        _run_phase("checkify", tmp, card)
     dist_launches = {"launches_dist_deeplab": 0, "launches_dist_eval": dist_eval_launches,
-                     "launches_async_ckpt": 0}
+                     "launches_async_ckpt": 0, "launches_zoo_nets": 0, "launches_checkify": 0}
     quant_launches = {"launches_quant_deeplab": quant_deeplab_launches,
                       "launches_inference_cli": inference_cli_launches}
     kernels = [{
@@ -5211,7 +5711,8 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:54",
         "launches": (serve_launches + train_fwd_launches + fada_gald_fwd + online_gald_fwd
                      + bf16_fwd + online_bf16_fwd + quant_gald_launches + dist_gald_fwd
-                     + recipe_fwd + ccnet["fwd"] + pretrained["fwd"]),
+                     + recipe_fwd + ccnet["fwd"] + pretrained["fwd"] + rewrite_fwd),
+        "launches_rewrites": rewrite_fwd,
         **dist_launches, "launches_dist_gald_2rank": dist_gald_fwd,
         "launches_recipes_tpu": recipe_fwd, "launches_ccnet": ccnet["fwd"],
         "launches_pretrained": pretrained["fwd"],
@@ -5242,7 +5743,8 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/ccattn.py:124",
         "launches": (train_bwd_launches + fada_gald_bwd + online_gald_bwd + bf16_bwd
                      + online_bf16_bwd + dist_gald_bwd + recipe_bwd + ccnet["bwd"]
-                     + pretrained["bwd"]),
+                     + pretrained["bwd"] + rewrite_bwd),
+        "launches_rewrites": rewrite_bwd,
         **dist_launches, "launches_dist_gald_2rank": dist_gald_bwd,
         "launches_recipes_tpu": recipe_bwd, "launches_ccnet": ccnet["bwd"],
         "launches_pretrained": pretrained["bwd"],
@@ -5265,7 +5767,9 @@ def main(argv=None) -> int:
         "replaces": "rnd_semantic_segmentation_tpu/ops/mbconv.py:113",
         "launches": (eval_attn_launches + serve_attn_launches + fada_attn_launches
                      + bli_launches + online_polyp_launches + device_aug_launches
-                     + online_bf16_fused + quant_attn_launches + recipe_mbconv),
+                     + online_bf16_fused + quant_attn_launches + recipe_mbconv
+                     + rewrite_mbconv),
+        "launches_rewrites": rewrite_mbconv,
         **dist_launches, "launches_dist_gald_2rank": 0, "launches_recipes_tpu": recipe_mbconv,
         "launches_ccnet": 0, "launches_pretrained": 0,
         **quant_launches, "launches_quant_gald": 0, "launches_quant_attn": quant_attn_launches,

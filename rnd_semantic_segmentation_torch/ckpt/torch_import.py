@@ -35,10 +35,13 @@ prefixes in torch.
 
 ``research_state_dict_from_flax`` and ``research_flax_from_state_dict`` are
 the pair for one module of the research zoo (models/contextagg.py, zoo.py,
-seg_nets.py, the GALD blocks of gcpa.py, ``Res2Net`` with its GCNet
-blocks), by class name (``RESEARCH_RULES``): Dense kernels become Linear
-weights or 1x1 ``Conv1d`` weights (O, I, 1), the GCNet LayerNorm's affine
-(C, 1, 1) and HolisticAttention's kernel (1, 1, 31, 31).
+seg_nets.py, nets_zoo.py, encoders_zoo.py, cls_hubs.py, fam_variants.py,
+resnet3d.py, the GALD blocks of gcpa.py, ``Res2Net`` with its GCNet blocks,
+``HarDNet`` of any arch), by class name (``RESEARCH_RULES``): Dense kernels
+become Linear weights or 1x1 ``Conv1d`` weights (O, I, 1), the GCNet
+LayerNorm's affine (C, 1, 1) and HolisticAttention's kernel (1, 1, 31, 31),
+3D conv kernels go from DHWIO to OIDHW, and CE-Net's transposed convs
+(``deconv2``, ``finaldeconv1``) are flipped as above.
 ``PRETRAINED_LAYOUTS`` says where a published backbone ``.pth`` lands in
 each family's parts (MODEL.WEIGHTS, ckpt/pretrained.py).
 
@@ -200,6 +203,11 @@ _RES2NET_RULES = [
     (r"downsample_bn$", "downsample/2"),
 ] + _GCB_RULES
 _SLASH = [(r"/", ".")]
+_REPVGG_RULES = [
+    (r"^stage(\d+)_(\d+)", r"stage\1/\2"),
+    (r"rbr_(dense|1x1)_(conv|bn)$", r"rbr_\1/\2"),
+]
+_FAM_BRANCH_RULES = [(r"(^|/)b(\d)/(conv|bn)$", r"\1\3\2")]
 RESEARCH_RULES = {
     "SpatialCGNL": _SLASH,
     "GALDBlock": _GALD_BLOCK_RULES + _SLASH,
@@ -236,7 +244,43 @@ RESEARCH_RULES = {
     "PSPHead": _SEG_BACKBONE_RULES + _PSP_RULES + _HEAD_SEQ_RULES + _SLASH,
     "DualSegNet": _SEG_BACKBONE_RULES + _DSN_RULES + _HEAD_SEQ_RULES + _DUALGCN_RULES
     + _SLASH,
+    # models/nets_zoo.py: JAX scopes, the ResNet encoders torchvision's
+    # (``_RESNET_BACKBONE_RULES``, as the deeplab backbone's)
+    "UNet": _SLASH,
+    "DACBlock": _SLASH,
+    "DACBlockNoAtrous": _SLASH,
+    "DACBlockInception": _SLASH,
+    "DACBlockInceptionBlocks": _SLASH,
+    "SPPBlock": _SLASH,
+    "CENet": _RESNET_BACKBONE_RULES,
+    "BiSeNetV1": _RESNET_BACKBONE_RULES,
+    # models/encoders_zoo.py: RepVGG's stages and branches are the
+    # reference's Sequentials (``stage1.0.rbr_dense.conv``)
+    "RepVGGBlock": _REPVGG_RULES + _SLASH,
+    "RepVGG": _REPVGG_RULES + _SLASH,
+    # layer3_1_0 is block 0 of the branch layer3_1; then torchvision's shortcut
+    "B2ResNet": [(r"^(layer\d+(?:_\d)?)_(\d+)", r"\1.\2")] + _RESNET_BACKBONE_RULES[1:],
+    "B2VGG": _SLASH,
+    "SEBasicBlock": _RESNET_BACKBONE_RULES,
+    "SEResNet": _RESNET_BACKBONE_RULES,
+    "DeepLabV3": _RESNET_BACKBONE_RULES,
+    "DeepLabV3ASPP": _SLASH,
+    # models/cls_hubs.py: the inserted context block keeps its scope ``layer3_nl``
+    "NLResNet": _RESNET_BACKBONE_RULES,
+    "CGNLResNet": _RESNET_BACKBONE_RULES,
+    # models/fam_variants.py: the FAM branches ``bN/conv``, ``bN/bn`` are the
+    # live FAM's ``convN``, ``bnN``
+    "FAMAG": _SLASH,
+    "FAMPra": _FAM_BRANCH_RULES + _SLASH,
+    "FAMSCWS": _FAM_BRANCH_RULES + _SLASH,
+    # models/resnet3d.py
+    "BasicBlock3d": _RESNET_BACKBONE_RULES,
+    "ResNet3D": _RESNET_BACKBONE_RULES,
+    # models/hardnet.py, any arch: the reference's ``base.N.layers.M``
+    "HarDNet": _ENCODER_RULES,
 }
+# the research modules' transposed convs (CE-Net's decoder), by torch prefix
+_RESEARCH_TRANSPOSED = (r"(^|\.)deconv2$", r"(^|\.)finaldeconv1$")
 # torch key -> the port's shape of a leaf the JAX package stores flatter: the
 # graph convolutions' Dense kernels are 1x1 Conv1d weights (O, I, 1), the
 # GCNet LayerNorm's affine is (C, 1, 1), the gaussian kernel (1, 1, 31, 31)
@@ -413,6 +457,8 @@ def _state_dict_from_flax(variables: Mapping, rules,
         prefix = _torch_prefix(path[:-1], rules)
         if path[-1] == "kernel" and arr.ndim == 2:
             arr = arr.T  # Dense (I, O) -> Linear (O, I)
+        elif path[-1] == "kernel" and arr.ndim == 5:
+            arr = np.transpose(arr, (4, 3, 0, 1, 2))  # DHWIO -> OIDHW
         elif path[-1] == "kernel":
             if any(re.search(p, prefix) for p in transposed_conv_paths):
                 # flipped (kh, kw, I, O) -> (I, O, kh, kw), flipped back
@@ -514,6 +560,8 @@ def _flax_from_state_dict(sd: Mapping, template: Mapping, rules,
             arr = np.asarray(value, dtype=np.float32)
             if path[-1] == "kernel" and len(leaf_shapes[path]) == 2:
                 arr = arr.reshape(arr.shape[:2]).T  # Linear (O, I) or Conv1d (O, I, 1)
+            elif path[-1] == "kernel" and arr.ndim == 5:
+                arr = np.transpose(arr, (2, 3, 4, 1, 0))  # OIDHW -> DHWIO
             elif path[-1] == "kernel":
                 prefix = _torch_prefix(path[:-1], rules)
                 if any(re.search(p, prefix) for p in transposed_conv_paths):
@@ -611,14 +659,15 @@ def research_state_dict_from_flax(name: str, variables: Mapping[str, Any]
     ``RESEARCH_RULES``: models/contextagg.py, zoo.py, seg_nets.py, the GALD
     blocks of gcpa.py and ``Res2Net`` with its GCNet blocks) -> the port's
     state dict; Dense kernels become Linear or 1x1 Conv1d weights."""
-    return _state_dict_from_flax(variables, RESEARCH_RULES[name], shapes=_RESEARCH_SHAPES)
+    return _state_dict_from_flax(variables, RESEARCH_RULES[name], _RESEARCH_TRANSPOSED,
+                                 shapes=_RESEARCH_SHAPES)
 
 
 def research_flax_from_state_dict(name: str, sd: Mapping[str, Any],
                                   template: Mapping[str, Any]) -> Dict[str, Any]:
     """The inverse of ``research_state_dict_from_flax``; ``template`` is the
     JAX module's variables tree, read for its paths and leaf shapes only."""
-    return _flax_from_state_dict(sd, template, RESEARCH_RULES[name])
+    return _flax_from_state_dict(sd, template, RESEARCH_RULES[name], _RESEARCH_TRANSPOSED)
 
 
 def _strip_prefix(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:

@@ -48,10 +48,13 @@ another value raises ValueError), the trainers SOLVER.ASYNC_CHECKPOINT (the
 background checkpoint writer, ckpt/async_writer.py), and every dataset
 DATA_PIPE.NATIVE_DECODE (the libjpeg/libpng decoder, data/native_decode.py).
 Every trainer reads MODEL.WEIGHTS (a pretrained backbone, a local .pth,
-ckpt/pretrained.py).
+ckpt/pretrained.py).  Every built model reads MODEL.S2D_MAX_CHANNELS and
+MODEL.SUBPIXEL_DECONV (the exact conv rewrites of ops/s2d.py and
+ops/subpixel.py), and the source and FADA trainers DEBUG.CHECKIFY (their
+steps' float checks, train/checkify.py; the online distillation step, like
+the JAX one, does not read it).
 A knob whose counterpart is not ported yet raises NotImplementedError when it
-is set (DIST.SPATIAL_PARALLEL > 1, DEBUG.CHECKIFY,
-MODEL.S2D_MAX_CHANNELS > 0, MODEL.SUBPIXEL_DECONV, and an Orbax directory as
+is set (DIST.SPATIAL_PARALLEL > 1, and an Orbax directory as
 DISTILL.TEACHER).
 The other keys belong to parts of the JAX package not yet ported and are kept
 so that their configs load.  The port trains in MODEL.DTYPE (the image cast

@@ -4,9 +4,10 @@
 ``bce_with_logits`` and ``tversky_loss`` make up the attn family's (Tversky
 with alpha 0.7 and eps 1, and BCE, at each of its five scales);
 ``soft_label_cross_entropy`` is FADA's discriminator and adversarial loss;
-``structure_loss`` is the pranet family's, on each of its four maps.  The
-Dice losses come with their family.  Every reduction is in float32, whatever
-the type of the logits.
+``structure_loss`` is the pranet family's, on each of its four maps.
+``compound_loss`` (a weighted sum of losses) and ``generalized_dice_loss``
+are the research utilities no family trains with.  Every reduction is in
+float32, whatever the type of the logits.
 
 ``across_ranks=True`` (the train steps, in a world of more than one process)
 makes the two losses that are not a mean of per-image terms global-batch
@@ -20,6 +21,8 @@ In a world of one the flag changes nothing.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -108,3 +111,49 @@ def structure_loss(pred: torch.Tensor, mask: torch.Tensor,
     union = ((p + mask) * weit).sum(dims)
     wiou = 1.0 - (inter + 1.0) / (union - inter + 1.0)
     return (wbce + wiou).mean()
+
+
+def compound_loss(losses: Sequence[Callable[..., torch.Tensor]],
+                  weights: Optional[Sequence[float]] = None) -> Callable[..., torch.Tensor]:
+    """The weighted sum of ``losses``, each called on the same inputs; the
+    weights default to 1/N each (attn/loss.py:42-64)."""
+    if weights is None:
+        weights = [1.0 / len(losses)] * len(losses)
+
+    def fn(*inputs) -> torch.Tensor:
+        return sum(w * loss_fn(*inputs) for loss_fn, w in zip(losses, weights))
+
+    return fn
+
+
+def generalized_dice_loss(output: torch.Tensor, target: torch.Tensor, eps: float = 1e-5,
+                          weight_type: str = "square", ignore_label: int = 255) -> torch.Tensor:
+    """The generalized Dice loss over the softmax of ``output``
+    (utility.py:399-447).
+
+    output ``[B,C,H,W]`` logits; target ``[B,H,W]`` labels, whose
+    ``ignore_label`` pixels drop out of both sums, or a ``[B,C,H,W]`` one-hot.
+    Each class weighs ``1 / (n_c^2 + eps)`` (``square``), ``1 / (n_c + eps)``
+    (``identity``) or ``1 / (sqrt(n_c) + eps)`` (``sqrt``), with ``n_c`` the
+    class's count in the target."""
+    c = output.shape[1]
+    out = F.softmax(output.float().permute(0, 2, 3, 1).reshape(-1, c), dim=-1)
+    if target.dim() == 3:
+        t = target.reshape(-1).long()
+        valid = (t != ignore_label).unsqueeze(1)
+        out = out * valid
+        onehot = F.one_hot(torch.where(valid[:, 0], t, 0), c).float() * valid
+    else:
+        onehot = target.float().permute(0, 2, 3, 1).reshape(-1, c)
+    target_sum = onehot.sum(0)
+    if weight_type == "square":
+        class_weights = 1.0 / (target_sum * target_sum + eps)
+    elif weight_type == "identity":
+        class_weights = 1.0 / (target_sum + eps)
+    elif weight_type == "sqrt":
+        class_weights = 1.0 / (torch.sqrt(target_sum) + eps)
+    else:
+        raise ValueError(f"bad weight_type {weight_type!r}")
+    intersect_sum = ((out * onehot).sum(0) * class_weights).sum()
+    denom_sum = ((out * out + onehot * onehot).sum(0) * class_weights).sum() + eps
+    return 1.0 - 2.0 * intersect_sum / denom_sum

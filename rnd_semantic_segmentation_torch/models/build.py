@@ -18,9 +18,11 @@ for a family's discriminator tap.
 blocks and EfficientNet's MBConv blocks; VGG16 has none.
 ``MODEL.FUSED_MBCONV`` reaches the attn encoder as a constructor argument: in
 eval mode its eligible MBConv blocks then run the fused kernel of
-ops/mbconv.py.  ``MODEL.FREEZE_BN`` reaches the deeplab ResNet backbones
-only, as in the JAX package: the attn and pranet norms train on batch
-statistics, although both pranet configs set it.
+ops/mbconv.py.  ``MODEL.S2D_MAX_CHANNELS`` and ``MODEL.SUBPIXEL_DECONV``
+set the exact conv rewrites of ops/s2d.py and ops/subpixel.py on every conv
+of the built parts (``set_conv_rewrites``).  ``MODEL.FREEZE_BN`` reaches the
+deeplab ResNet backbones only, as in the JAX package: the attn and pranet
+norms train on batch statistics, although both pranet configs set it.
 """
 
 from __future__ import annotations
@@ -37,12 +39,10 @@ from .discriminator import PixelDiscriminator
 from .efficientnet import EfficientNetEncoder
 from .gcpa import CrissCrossAttention, GCPADecoder, GCPAEncoder
 from ..ckpt.torch_import import conv_scopes
-from .layers import Conv2d, FrozenBatchNorm2d
+from .layers import Conv2d, ConvTranspose2d, FrozenBatchNorm2d
 from .pranet import PraNet
 from .remat import set_remat_blocks
-from .res2net import Res2Net
 from .resnet import _ARCHS, ResNet, output_channels
-from .seg_nets import DilatedSegBackbone
 
 
 def split_model_name(name: str) -> Tuple[str, str]:
@@ -69,28 +69,33 @@ class SegmentorSpec:
     disc_tap: str
 
 
-def _refuse_rewrites(cfg) -> None:
-    """``MODEL.S2D_MAX_CHANNELS > 0`` and ``MODEL.SUBPIXEL_DECONV`` select the
-    JAX package's exact rewrites of the stem convs and the transposed convs
-    (``ops/s2d.py``, ``ops/subpixel.py``), which the port does not have yet:
-    they raise here, so that training, eval, serving and export refuse them
-    alike instead of ignoring them."""
-    asked = [name for name, on in (
-        ("MODEL.S2D_MAX_CHANNELS > 0", int(cfg.MODEL.S2D_MAX_CHANNELS) > 0),
-        ("MODEL.SUBPIXEL_DECONV", bool(cfg.MODEL.SUBPIXEL_DECONV))) if on]
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(asked)} (the space-to-depth and sub-pixel "
-            f"rewrites of the JAX package)")
-
-
 def build_segmentor(cfg) -> SegmentorSpec:
-    _refuse_rewrites(cfg)
     spec = _build_segmentor(cfg)
     for module in spec.modules.values():
         set_remat_blocks(module, bool(cfg.MODEL.REMAT_BLOCKS))
+        set_conv_rewrites(module, int(cfg.MODEL.S2D_MAX_CHANNELS),
+                          bool(cfg.MODEL.SUBPIXEL_DECONV))
     assign_quant_keys(spec.family, spec.modules)
     return spec
+
+
+def set_conv_rewrites(module: nn.Module, s2d_max_channels: int, subpixel: bool) -> int:
+    """Sets the exact rewrites on every conv of ``module``: the
+    space-to-depth threshold (MODEL.S2D_MAX_CHANNELS, 0 for none) on each
+    ``layers.Conv2d`` and the sub-pixel switch (MODEL.SUBPIXEL_DECONV) on
+    each ``layers.ConvTranspose2d``.  The JAX package sets both as process
+    policies at build time; here they are the layers' own, so that every
+    thread, ``torch.export`` and every loader process see them alike.
+    Returns the number of convs touched."""
+    count = 0
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.set_s2d(s2d_max_channels)
+            count += 1
+        elif isinstance(m, ConvTranspose2d):
+            m.set_subpixel(subpixel)
+            count += 1
+    return count
 
 
 def assign_quant_keys(family: str, modules: Dict[str, nn.Module]) -> None:
@@ -128,7 +133,10 @@ def _build_segmentor(cfg) -> SegmentorSpec:
         )
     if family == "gald":
         if backbone not in ("", "hardnet68"):
-            raise NotImplementedError(f"gald backbone {backbone!r}: only hardnet68")
+            # HarDNet39 and 85 exist (models/hardnet.py) but give no taps, in
+            # the JAX package too: the GCPA decoder reads HarDNet68's four
+            raise NotImplementedError(f"gald backbone {backbone!r}: only hardnet68, the one "
+                                      f"HarDNet with taps for the GCPA decoder")
         return SegmentorSpec(
             family=family, backbone="hardnet68",
             modules={"encoder": GCPAEncoder(),
@@ -207,8 +215,10 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     logits of order 1 to 5; biases and BN affines are small and nonzero,
     running statistics random, and every criss-cross ``gamma`` is set to
     ``gamma``: at its init value 0 the attention would contribute nothing.
-    The norms of a ResNet, a Res2Net or a deep-stem research net
-    (models/seg_nets.py, its head included) take weights in [0.25, 0.75]: with running
+    The norms of a residual net, whose class sets ``damp_norms`` (ResNet,
+    Res2Net, the deep-stem research nets of models/seg_nets.py with their
+    heads, B2ResNet, SEResNet, RepVGG, the classification hubs, ResNet3D),
+    take weights in [0.25, 0.75]: with running
     statistics (FrozenBN always, BatchNorm in eval mode) nothing normalises
     the sum of a residual block, and at [0.5, 1.5] each block about doubles
     the second moment of its input, so that ResNet101's 33 blocks take the
@@ -222,19 +232,18 @@ def randomize_weights_(module: nn.Module, seed: int, gamma: float = 0.7) -> nn.M
     def uniform(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=gen) * (hi - lo) + lo)
 
-    damped = {id(n) for m in module.modules()
-              if isinstance(m, (ResNet, Res2Net, DilatedSegBackbone))
+    damped = {id(n) for m in module.modules() if getattr(m, "damp_norms", False)
               for n in m.modules()}
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
-            # OIHW, or IOHW for a transposed conv: 4 of its 16 taps reach an output
-            fan_in = (m.weight[0].numel() if isinstance(m, nn.Conv2d)
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+            # OI(D)HW, or IOHW for a transposed conv: 4 of its 16 taps reach an output
+            fan_in = (m.weight[0].numel() if not isinstance(m, nn.ConvTranspose2d)
                       else m.weight.shape[0] * 4)
             m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
                            * (1.7 / fan_in) ** 0.5)
             if m.bias is not None:
                 uniform(m.bias, -0.1, 0.1)
-        elif isinstance(m, (nn.BatchNorm2d, FrozenBatchNorm2d)):
+        elif isinstance(m, (nn.BatchNorm2d, nn.BatchNorm3d, FrozenBatchNorm2d)):
             uniform(m.weight, *((0.25, 0.75) if id(m) in damped else (0.5, 1.5)))
             uniform(m.bias, -0.2, 0.2)
             uniform(m.running_mean, -0.2, 0.2)

@@ -1,9 +1,15 @@
-"""HarDNet68 encoder (counterpart of the JAX package's models/hardnet.py).
+"""HarDNet encoders (counterpart of the JAX package's models/hardnet.py):
+HarDNet68, and HarDNet39 and HarDNet85 from the same arch table
+(hardnet_68.py:163-198).
 
 ``base`` is the reference's sequential ModuleList, so parameter names are the
-reference's ``state_dict`` keys (``base.4.layers.3.conv.weight``).  The
-forward returns the four taps at base indices 4, 9, 12 and 15 that the GCPA
-decoder reads: 128 channels at /4, 320 at /8, 640 at /16, 1024 at /32.
+reference's ``state_dict`` keys (``base.4.layers.3.conv.weight``).  For
+HarDNet68 the forward returns the four taps at base indices 4, 9, 12 and 15
+that the GCPA decoder reads: 128 channels at /4, 320 at /8, 640 at /16, 1024
+at /32.  The JAX ``HarDNet`` collects taps for arch 68 only, and returns an
+empty tuple for 39 and 85 after running every layer; the port does the same,
+with the same parameters (so no GCPA decoder sits on them, and
+``gald_hardnet85`` is refused by ``models.build``).
 Each ``HarDBlock`` is a ``RematBlock`` (``MODEL.REMAT_BLOCKS``, models/remat.py).
 """
 
@@ -98,20 +104,30 @@ class MaxPool(nn.Module):
         return max_pool(x, self.kernel, self.stride, self.padding)
 
 
-_HARDNET68 = dict(first_ch=(32, 64), ch_list=(128, 256, 320, 640, 1024),
-                  gr=(14, 16, 20, 40, 160), grmul=1.7,
-                  n_layers=(8, 16, 16, 16, 4), down_samp=(1, 0, 1, 1, 0))
-_TAPS = (4, 9, 12, 15)
+_HARDNET_ARCHS = {
+    68: dict(first_ch=(32, 64), ch_list=(128, 256, 320, 640, 1024),
+             gr=(14, 16, 20, 40, 160), grmul=1.7,
+             n_layers=(8, 16, 16, 16, 4), down_samp=(1, 0, 1, 1, 0)),
+    39: dict(first_ch=(24, 48), ch_list=(96, 320, 640, 1024),
+             gr=(16, 20, 64, 160), grmul=1.6,
+             n_layers=(4, 16, 8, 4), down_samp=(1, 1, 1, 0)),
+    85: dict(first_ch=(48, 96), ch_list=(192, 256, 320, 480, 720, 1280),
+             gr=(24, 24, 28, 36, 48, 256), grmul=1.7,
+             n_layers=(8, 16, 16, 16, 16, 4), down_samp=(1, 0, 1, 0, 1, 0)),
+}
+_TAPS = {68: (4, 9, 12, 15)}
 
 
 class HarDNet(nn.Module):
-    """HarDNet backbone returning the 4 feature taps the GCPA decoder reads."""
+    """HarDNet backbone returning the 4 feature taps the GCPA decoder reads
+    (HarDNet68), or none (39, 85)."""
 
     def __init__(self, arch: int = 68):
         super().__init__()
-        if arch != 68:
-            raise NotImplementedError(f"HarDNet{arch}: the port has HarDNet68 only")
-        spec = _HARDNET68
+        if arch not in _HARDNET_ARCHS:
+            raise NotImplementedError(f"HarDNet{arch}: one of {sorted(_HARDNET_ARCHS)}")
+        self.taps = _TAPS.get(arch, ())
+        spec = _HARDNET_ARCHS[arch]
         first_ch, ch_list = spec["first_ch"], spec["ch_list"]
         base: List[nn.Module] = [ConvLayer(3, first_ch[0], kernel=3, stride=2),
                                  ConvLayer(first_ch[0], first_ch[1], kernel=3),
@@ -130,6 +146,6 @@ class HarDNet(nn.Module):
         taps = []
         for i, layer in enumerate(self.base):
             x = layer(x)
-            if i in _TAPS:
+            if i in self.taps:
                 taps.append(x)
         return tuple(taps)

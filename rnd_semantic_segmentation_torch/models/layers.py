@@ -31,6 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.mbconv import swish  # noqa: F401  (x * sigmoid(x), shared with the kernel's plain version)
+from ..ops.s2d import block_taps, conv2d_s2d, s2d_applies
+from ..ops.subpixel import conv_transpose_subpixel, phase_taps
 from ..serve.quant import current_quant, module_path
 
 def cast_param(p: Optional[torch.Tensor], x: torch.Tensor) -> Optional[torch.Tensor]:
@@ -44,9 +46,29 @@ class Conv2d(nn.Conv2d):
     Inside a ``quant_scope`` (serve/quant.py) the conv goes through the
     context's ``conv2d`` under its ``quant_key``, the JAX package's flax
     scope path, which ``models.build.build_segmentor`` assigns; where the
-    context declines (None) it takes its float path."""
+    context declines (None) it takes its float path.  Outside a quant scope,
+    a conv whose ``s2d_max_channels`` (``set_s2d``: MODEL.S2D_MAX_CHANNELS,
+    set by ``build_segmentor``) admits it runs as the exact space-to-depth
+    rewrite of ops/s2d.py."""
 
     quant_key: Optional[str] = None
+    s2d_max_channels: int = 0
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_buffer("s2d_taps", None, persistent=False)
+
+    def set_s2d(self, max_channels: int) -> None:
+        """Sets the rewrite's threshold; where it could apply (an odd kernel
+        other than 1x1, stride 1 or 2), the block weight's gather index is
+        kept as a buffer (not in the ``state_dict``) on the weight's device."""
+        self.s2d_max_channels = int(max_channels)
+        kh, kw = self.kernel_size
+        taps = None
+        if (self.s2d_max_channels and kh % 2 == 1 and kw % 2 == 1 and (kh, kw) != (1, 1)
+                and self.stride in ((1, 1), (2, 2))):
+            taps = block_taps(kh, kw, self.stride[0], self.weight.device)
+        self.register_buffer("s2d_taps", taps, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         qctx = current_quant()
@@ -55,6 +77,11 @@ class Conv2d(nn.Conv2d):
                             self.padding, self.dilation, self.groups)
             if y is not None:
                 return y
+        elif s2d_applies(x.shape, self.weight.shape, self.stride, self.padding,
+                         self.dilation, self.groups, self.s2d_max_channels):
+            y = conv2d_s2d(x, cast_param(self.weight, x), self.stride, self.padding,
+                           self.s2d_taps)
+            return y if self.bias is None else y + cast_param(self.bias, x).view(1, -1, 1, 1)
         return self._conv_forward(x, cast_param(self.weight, x), cast_param(self.bias, x))
 
 
@@ -75,9 +102,30 @@ class Linear(nn.Linear):
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` computing in its input's type, its parameters
-    cast; the output size is the layer's own (no ``output_size``)."""
+    cast; the output size is the layer's own (no ``output_size``).  Under
+    ``set_subpixel(True)`` (MODEL.SUBPIXEL_DECONV, set by ``build_segmentor``)
+    a strided one runs as the exact phase decomposition of ops/subpixel.py."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.register_buffer("subpixel_taps", None, persistent=False)
+
+    def set_subpixel(self, enabled: bool) -> None:
+        """Turns the rewrite on or off for this layer: on where it applies (a
+        stride above 1, groups and dilation 1), with the phase weight's gather
+        index kept as a buffer (not in the ``state_dict``) on the weight's
+        device."""
+        taps = None
+        if enabled and max(self.stride) > 1 and self.groups == 1 and self.dilation == (1, 1):
+            taps = phase_taps(*self.kernel_size, self.stride, self.padding,
+                              self.output_padding, self.weight.device)
+        self.register_buffer("subpixel_taps", taps, persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.subpixel_taps is not None:
+            y = conv_transpose_subpixel(x, cast_param(self.weight, x), self.stride,
+                                        self.padding, self.output_padding, self.subpixel_taps)
+            return y if self.bias is None else y + cast_param(self.bias, x).view(1, -1, 1, 1)
         return F.conv_transpose2d(x, cast_param(self.weight, x), cast_param(self.bias, x),
                                   self.stride, self.padding, self.output_padding,
                                   self.groups, self.dilation)

@@ -83,6 +83,8 @@ class Res2Net(nn.Module):
     (models/contextagg.py) on the input of layers 2-4, ``layer2_gcb`` to
     ``layer4_gcb``, named after the JAX package's scopes."""
 
+    damp_norms = True  # models.build.randomize_weights_ damps its norms
+
     def __init__(self, layers: Tuple[int, int, int, int] = (3, 4, 6, 3),
                  base_width: int = 26, scale: int = 4, gc_blocks: bool = False):
         super().__init__()

@@ -96,6 +96,8 @@ class ResNet(nn.Module):
     the taps named in ``return_layers`` (the reference's
     IntermediateLayerGetter) as ``{name: tensor}``."""
 
+    damp_norms = True  # models.build.randomize_weights_ damps its norms
+
     def __init__(self, arch: str = "resnet101",
                  replace_stride_with_dilation: Tuple[bool, bool, bool] = (False, False, False),
                  norm_kind: str = "bn", return_layers: Tuple[str, ...] = ("layer4",)):

@@ -70,6 +70,8 @@ class _CCBottleneck(nn.Module):
 class DilatedSegBackbone(nn.Module):
     """Deep-stem OS8 ResNet; ``forward`` returns the (layer3, layer4) taps."""
 
+    damp_norms = True  # models.build.randomize_weights_ damps its norms
+
     def __init__(self, layers: Tuple[int, int, int, int] = (3, 4, 23, 3),
                  layer4_grids: Sequence[int] = (1, 2, 4)):
         super().__init__()

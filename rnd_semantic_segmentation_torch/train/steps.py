@@ -140,13 +140,9 @@ def make_lr_schedule(spec, cfg, steps_per_epoch: int) -> Callable:
 
 def check_step_knobs(cfg) -> None:
     """MODEL.DTYPE and SOLVER.REMAT must be values the port takes
-    (``compute_dtype``, ``remat_mode``); the step knobs of the JAX package that
-    the port does not take yet raise."""
+    (``compute_dtype``, ``remat_mode``)."""
     compute_dtype(cfg)
     remat_mode(cfg)
-    if cfg.DEBUG.CHECKIFY:
-        raise NotImplementedError("DEBUG.CHECKIFY has no counterpart in the port yet; "
-                                  "DEBUG.NANS turns on autograd's anomaly detection")
 
 
 def make_src_train_step(segmentor: Segmentor, cfg, steps_per_epoch: int,

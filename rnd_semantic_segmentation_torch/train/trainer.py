@@ -74,7 +74,7 @@ from ..ckpt.checkpoint_io import (
 from ..ckpt.pretrained import load_pretrained_backbone
 from ..data.device_pipe import make_device_augmenter
 from ..data.loader import DataLoader, device_prefetch
-from ..models.build import build_adversarial_discriminator, build_segmentor
+from ..models.build import build_adversarial_discriminator, build_segmentor, set_conv_rewrites
 from ..ops import resize_bilinear
 from ..parallel import (
     barrier,
@@ -90,6 +90,7 @@ from .bn_recal import recalibrate_batch_stats
 from .fada import DISC_PART, make_disc_optimizer, make_fada_train_step
 from .segmentor import Segmentor
 from .state import TrainState, make_optimizers
+from .checkify import wrap_step_checkify
 from .steps import make_src_train_step
 
 
@@ -138,8 +139,8 @@ class Trainer:
             self.rates = MULTISCALE_RATES
         self.start_epoch = self._resume()
         self.steps_per_epoch = len(train_loader)
-        self.step_fn = make_src_train_step(self.segmentor, cfg, self.steps_per_epoch,
-                                           self.state, seed=cfg.SEED + 1)
+        self.step_fn = self._checked(make_src_train_step(
+            self.segmentor, cfg, self.steps_per_epoch, self.state, seed=cfg.SEED + 1))
         self.device_augs = ((make_device_augmenter(cfg),) if cfg.DATA_PIPE.DEVICE_AUG
                             else None)
 
@@ -165,6 +166,14 @@ class Trainer:
         self.ckpt_writer = (AsyncCheckpointWriter() if cfg.SOLVER.ASYNC_CHECKPOINT
                             and process_is_primary() else None)
         self.save_blocked_ms = []
+
+    def _checked(self, step_fn):
+        """DEBUG.CHECKIFY: the step under the float checks of train/checkify.py,
+        which raise ``FloatingPointError`` after a step that made a NaN or
+        divided by zero."""
+        if not self.cfg.DEBUG.CHECKIFY:
+            return step_fn
+        return wrap_step_checkify(step_fn, self.ckpt_modules)
 
     def _replicate(self, module) -> None:
         """Under more than one process: rank 0's parameters and buffers, and
@@ -349,6 +358,10 @@ class FadaTrainer(Trainer):
         self.src_loader, self.tgt_loader = self._slice(src_loader), self._slice(tgt_loader)
         torch.manual_seed(cfg.SEED + 2)
         self.disc = build_adversarial_discriminator(cfg, self.spec).to(self.device)
+        # the JAX package's rewrite policies are the process's: its
+        # discriminator's convs take them too
+        set_conv_rewrites(self.disc, int(cfg.MODEL.S2D_MAX_CHANNELS),
+                          bool(cfg.MODEL.SUBPIXEL_DECONV))
         self._replicate(self.disc)
         self.state = TrainState(optimizers={**make_optimizers(self.spec, cfg),
                                             DISC_PART: make_disc_optimizer(self.disc)})
@@ -357,9 +370,9 @@ class FadaTrainer(Trainer):
         self.chart_name = f"{self.spec.family}_fada"
         self.start_epoch = self._resume()
         self.steps_per_epoch = min(len(src_loader), len(tgt_loader))
-        self.step_fn = make_fada_train_step(self.segmentor, self.disc, cfg,
-                                            self.steps_per_epoch, self.state,
-                                            seed=cfg.SEED + 3)
+        self.step_fn = self._checked(make_fada_train_step(
+            self.segmentor, self.disc, cfg, self.steps_per_epoch, self.state,
+            seed=cfg.SEED + 3))
         self.device_augs = ((make_device_augmenter(cfg, is_source=True),
                              make_device_augmenter(cfg, is_source=False))
                             if cfg.DATA_PIPE.DEVICE_AUG else None)

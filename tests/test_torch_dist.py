@@ -176,9 +176,10 @@ def test_losses_over_two_ranks_equal_the_jax_losses_on_the_whole_batch(units, na
     gradient all-reduce takes), are its gradient."""
     value, grad = _jax_loss(name, W.loss_inputs())
     values = [float(r[f"loss/{name}/value"]) for r in units]
-    assert abs(np.mean(values) - value) <= 1e-6 * abs(value)
+    assert abs(np.mean(values) - value) <= 1e-6 * abs(value), (name, values, value)
     got = np.concatenate([r[f"loss/{name}/grad"] for r in units]) / WORLD
-    assert _rel(got, grad) <= 1e-6
+    gap = _rel(got, grad)
+    assert gap <= 1e-6, (name, gap)
     if name == "ce":  # uneven shards: the mean of the ranks' own means is another loss
         inp = W.loss_inputs()
         own = [float(losses.cross_entropy(torch.from_numpy(p["logits"]),

@@ -586,16 +586,45 @@ def test_tester_evaluates_the_fada_checkpoint(fada_run):
 @pytest.mark.parametrize("opts,match", [
     (("MODEL.WEIGHTS", "resnet18.pth"), "MODEL.WEIGHTS"),
     (("DIST.SPATIAL_PARALLEL", "2"), "SPATIAL_PARALLEL"),
-    (("MODEL.S2D_MAX_CHANNELS", "16"), "S2D_MAX_CHANNELS"),
+    (("MODEL.S2D_MAX_CHANNELS", "64"), "S2D_MAX_CHANNELS"),  # ResNet18's stem and layer1
 ], ids=lambda o: o[0] if isinstance(o, tuple) else "")
 def test_fada_trainer_refuses_the_knobs_that_wait(tmp_path, opts, match):
     if opts[0] == "MODEL.WEIGHTS":
         # no longer waits: a seeded torchvision-layout ResNet18 is the backbone's start
         _fada_knob_loads_a_seeded_resnet18(tmp_path, opts[1])
         return
+    if opts[0] == "MODEL.S2D_MAX_CHANNELS":
+        # no longer waits: the space-to-depth rewrite reaches every conv
+        _fada_knob_rewrites_the_narrow_convs(tmp_path, opts[1])
+        return
     cfg = load_cfg(train_adv.build_parser().parse_args(_cli_opts(tmp_path, *opts)))
     with pytest.raises(NotImplementedError, match=match):
         train_adv.make_trainer("deeplab_fada", cfg)
+
+
+def _fada_knob_rewrites_the_narrow_convs(tmp_path, limit):
+    """The threshold sits on every conv of the segmentor and of the
+    discriminator (the JAX package's policy is the process's); the first
+    step's losses in float32 are within 2e-4 of the knob off's."""
+    from rnd_semantic_segmentation_torch.models.layers import Conv2d
+
+    import random
+
+    losses = []
+    for opts in ((), ("MODEL.S2D_MAX_CHANNELS", limit)):
+        # the augmentation draws from the random module: one loader thread,
+        # seeded, gives both runs the same batches
+        random.seed(0)
+        args = train_adv.build_parser().parse_args(_cli_opts(
+            tmp_path / str(len(opts)), "MODEL.DTYPE", "float32", *opts,
+            "SOLVER.CHECKPOINT_PERIOD", "5", "DATA_PIPE.NUM_WORKERS", "0"))
+        trainer = train_adv.make_trainer("deeplab_fada", load_cfg(args))
+        convs = [m for part in trainer.ckpt_modules.values() for m in part.modules()
+                 if isinstance(m, Conv2d)]
+        assert convs and all(c.s2d_max_channels == (int(limit) if opts else 0) for c in convs)
+        trainer.train()
+        losses.append(trainer.series["loss_seg"][0])
+    assert abs(losses[1] - losses[0]) <= 2e-4 * abs(losses[0])
 
 
 def _fada_knob_loads_a_seeded_resnet18(tmp_path, name):

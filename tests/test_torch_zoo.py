@@ -40,7 +40,8 @@ def _randomise(path, leaf, rng, bn_scale=(0.5, 1.5)):
 
 
 def hold(name, jax_module, port_module, inputs, seed=1, bn_scale=(0.5, 1.5)):
-    """The two modules on ``inputs`` (NHWC numpy) with one seeded set of
+    """The two modules on ``inputs`` (channels-last numpy: NHWC, NTHWC, or
+    [N, C] features) with one seeded set of
     weights, norm scales drawn from ``bn_scale``; returns the JAX variables.
     Shared with tests/test_torch_contextagg.py and test_torch_seg_nets.py."""
     xs = [jnp.asarray(a) for a in inputs]
@@ -59,15 +60,15 @@ def hold(name, jax_module, port_module, inputs, seed=1, bn_scale=(0.5, 1.5)):
             node = node[key.key]
         np.testing.assert_array_equal(node, leaf, err_msg=str(path))
     with torch.no_grad():
-        out = port_module.eval()(*(torch.from_numpy(a.transpose(0, 3, 1, 2).copy())
-                                   for a in inputs))
+        out = port_module.eval()(*(torch.from_numpy(
+            a.transpose(0, a.ndim - 1, *range(1, a.ndim - 1)).copy()) for a in inputs))
     if isinstance(out, dict):  # Res2Net's taps
         out, ref = tuple(out.values()), tuple(ref[k] for k in out)
     outs = out if isinstance(out, tuple) else (out,)
     refs = ref if isinstance(ref, tuple) else (ref,)
     assert len(outs) == len(refs)
     for o, r in zip(outs, refs):
-        o, r = o.permute(0, 2, 3, 1).numpy(), np.asarray(r)
+        o, r = o.permute(0, *range(2, o.dim()), 1).numpy(), np.asarray(r)
         assert o.shape == r.shape and np.isfinite(o).all()
         err, scale = np.abs(o - r).max(), np.abs(r).max()
         assert err <= REL * scale, f"{name}: max abs error {err} > {REL} x {scale}"
